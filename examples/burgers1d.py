@@ -13,9 +13,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from blitzdg_tpu import build_nodes1d
-from blitzdg_tpu.ops import burgers1d_rhs, burgers_exact
-from blitzdg_tpu.timestepping import integrate, lserk4_step
+from blitzdg_jax import build_nodes1d
+from blitzdg_jax.ops import burgers1d_rhs, burgers_exact
+from blitzdg_jax.timestepping import integrate, lserk4_step
 
 
 def main():

@@ -18,9 +18,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import scipy.sparse.linalg as spla
 
-from blitzdg_tpu.mesh import box_triangles, read_gmsh
-from blitzdg_tpu.ops.poisson import assemble_bc_rhs, assemble_poisson2d
-from blitzdg_tpu.specgrid.triangle import build_triangle_context
+from blitzdg_jax.mesh import box_triangles, read_gmsh
+from blitzdg_jax.ops.poisson import assemble_bc_rhs, assemble_poisson2d
+from blitzdg_jax.specgrid.triangle import build_triangle_context
 
 
 def main():

@@ -18,10 +18,10 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from blitzdg_tpu.config import namelist_get, read_namelist
-from blitzdg_tpu.mesh import box_quads
-from blitzdg_tpu.ops.ins2d import INSState, divergence, ins2d_step
-from blitzdg_tpu.specgrid.quad import build_quad_context
+from blitzdg_jax.config import namelist_get, read_namelist
+from blitzdg_jax.mesh import box_quads
+from blitzdg_jax.ops.ins2d import INSState, divergence, ins2d_step
+from blitzdg_jax.specgrid.quad import build_quad_context
 
 
 def main():

@@ -1,124 +1,86 @@
-"""Multi-chip MPC over the DIFFERENTIABLE sharded blocked rollout
-(parallel/blocked_shard.make_sharded_blocked_step_diff).
+"""Element-sharded MPC over the ppermute-halo XLA rollout (parallel/halo.py).
 
-Demonstrates the full multi-chip MPC machinery end to end: an Adam loop
-optimizes a PER-STEP CONTROL SEQUENCE (linear momentum-forcing injectors
-compiled into the per-shard stage kernels) to steer the flow to a target
-terminal state, with jax.grad flowing through the Pallas stage kernels
-(custom VJP, in-kernel pullback incl. control cotangents), the
-transposed ppermute halo exchange, and a psum-reduced cost. Runs on any
-element mesh — 8 virtual CPU devices here (set
-XLA_FLAGS=--xla_force_host_platform_device_count=8), real chips on a
-pod slice with the identical program.
+An Adam loop optimizes a per-step control sequence (two Gaussian momentum
+sources) to steer the flow to a target terminal momentum field, with
+`jax.grad` flowing through the element-sharded rollout: halo exchange by
+`ppermute` between SSP-RK2 stages, cost reduced with `psum`. The target is
+the terminal momentum reached by a hidden reference control sequence, so
+it is reachable.
 
-    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-        python examples/mpc_sharded.py
+    python examples/mpc_sharded.py                  # all local devices
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
+        python examples/mpc_sharded.py              # virtual CPU devices
 """
 import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-flags = os.environ.get("XLA_FLAGS", "")
-if "host_platform_device_count" not in flags:
-    os.environ["XLA_FLAGS"] = flags + " --xla_force_host_platform_device_count=8"
-
 import jax
-
-if os.environ.get("JAX_PLATFORMS", "") not in ("", "cpu"):
-    pass  # real accelerators: use them as-is
-else:
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 import optax
 from jax.sharding import Mesh, PartitionSpec as P
 
-from blitzdg_tpu.mesh import box_triangles
-from blitzdg_tpu.ops.sw2d import SWPhysics
-from blitzdg_tpu.parallel import partition_mesh
-from blitzdg_tpu.parallel.blocked_shard import (
-    build_sharded_blocked,
-    initial_send_buffer,
-    make_sharded_blocked_step_diff,
-    pack_local,
+from blitzdg_jax.config import enable_compile_cache
+from blitzdg_jax.mesh import box_triangles
+from blitzdg_jax.ops.sw2d import SWPhysics, SWState, apply_filter
+from blitzdg_jax.parallel import (
+    build_halo_plan,
+    context_shard_specs,
+    halo_sw2d_rhs,
+    halo_tables,
+    partition_mesh,
 )
-from blitzdg_tpu.specgrid.triangle import build_triangle_context
+from blitzdg_jax.specgrid.triangle import build_triangle_context
+from blitzdg_jax.timestepping import ssprk2_step
 
 
-def main(ndev=None, n_steps=8, iters=30):
+def main(ndev=None, n_steps=8, iters=30, dt=1e-3):
+    enable_compile_cache()
     devices = jax.devices()
     ndev = ndev or min(8, len(devices))
-    interpret = devices[0].platform == "cpu"
-    mesh0 = box_triangles(8, 8)
-    mesh2d, _, _ = partition_mesh(mesh0, ndev)
+    mesh2d, _, _ = partition_mesh(box_triangles(8, 8), ndev)
     ctx = build_triangle_context(1, mesh2d, filter_cutoff=0.9,
                                  filter_order=1, dtype=jnp.float32)
     phys = SWPhysics(g=9.81)
-    bump = np.exp(-8.0 * (np.asarray(ctx.x) ** 2 + np.asarray(ctx.y) ** 2))
-    BU = np.stack([bump, 0 * bump])
-    BV = np.stack([0 * bump, bump])
-    sb = build_sharded_blocked(ctx, phys, ndev, dtype=jnp.float32,
-                               forcing_bu=BU, forcing_bv=BV)
-    meta = sb.meta
-    k_loc = sb.k_loc
-    DT = 1e-3
-    step = make_sharded_blocked_step_diff(sb, DT, interpret=interpret)
+    plan = build_halo_plan(ctx, ndev)
+    tables = halo_tables(plan)
     el_mesh = Mesh(np.array(devices[:ndev]), ("element",))
+    el2 = P("element", None)
+    tb_specs = tuple(P("element", *([None] * (a.ndim - 1))) for a in tables)
 
-    zero_pk = jnp.concatenate([
-        pack_local(meta, np.zeros((k_loc, ctx.n_p), np.float32))
-        for _ in range(ndev)], axis=0)
-    vm = sb.ops.vmask[0][None]
+    def terminal_hu(c, tb, cs):
+        bump = jnp.exp(-8.0 * (c.x ** 2 + c.y ** 2))
+        h = jnp.full_like(c.x, 10.0)  # rest start: the controls steer
+        s = SWState(h=h, hu=jnp.zeros_like(h), hv=jnp.zeros_like(h))
 
-    op_specs = jax.tree.map(
-        lambda a: P("element", *([None] * (a.ndim - 1))), sb.ops)
-    st_spec = P("element", None, None, None)
+        def body(s, ctrl):
+            def rhs(ss, t):
+                r = halo_sw2d_rhs(c, ss, t, phys, tb, plan)
+                return r._replace(hu=r.hu + ctrl[0] * bump,
+                                  hv=r.hv + ctrl[1] * bump)
+            return ssprk2_step(rhs, s, 0.0, dt,
+                               post_stage=lambda f: apply_filter(c, f)), None
 
-    # target: the terminal momentum REACHED by a hidden reference control
-    # sequence — the optimizer must rediscover an equivalent sequence
-    # (guaranteed-reachable system-identification-style demo)
-    cs_ref = jnp.asarray(
-        np.array([[0.8, -0.4]] * n_steps, np.float32))
+        return jax.lax.scan(body, s, cs)[0].hu
 
-    def rollout_local(ops_l, cs, z_l):
-        pk = (10.0 * vm, z_l, z_l)
-        sb0 = initial_send_buffer(sb, ops_l, pk)
+    roll = jax.jit(jax.shard_map(
+        terminal_hu, mesh=el_mesh,
+        in_specs=(context_shard_specs(ctx), tb_specs, P()), out_specs=el2))
+    cs_ref = jnp.asarray(np.array([[0.8, -0.4]] * n_steps, np.float32))
+    target = roll(ctx, tables, cs_ref)
 
-        def body(carry, c):
-            return step(ops_l, carry, 0.0, ctrl=c), None
+    def loss_local(c, tb, cs, tgt):
+        err = jnp.sum((terminal_hu(c, tb, cs) - tgt) ** 2)
+        return jax.lax.psum(err, "element") + 1e-7 * jnp.sum(cs ** 2)
 
-        ((out, _), _) = jax.lax.scan(body, (pk, sb0), cs)[0], None
-        return out[1]  # terminal hu (packed)
-
-    roll_fn = jax.jit(jax.shard_map(
-        rollout_local, mesh=el_mesh,
-        in_specs=(op_specs, P(), st_spec),
-        out_specs=st_spec, check_vma=False))
-    tgt_pk = roll_fn(sb.ops, cs_ref, zero_pk)
-
-    def loss_local(ops_l, cs, tgt_l, z_l):
-        h_pk = 10.0 * vm  # rest start; the CONTROLS must do the steering
-        pk = (h_pk, z_l, z_l)
-        sb0 = initial_send_buffer(sb, ops_l, pk)
-
-        def body(carry, c):
-            return step(ops_l, carry, 0.0, ctrl=c), None
-
-        ((out, _), _) = jax.lax.scan(body, (pk, sb0), cs)[0], None
-        hu_end = out[1]
-        loc = jnp.sum(vm * (hu_end - tgt_l) ** 2)
-        return jax.lax.psum(loc, "element") + 1e-7 * jnp.sum(cs**2)
-
-    def total(cs):
-        fn = jax.shard_map(
-            loss_local, mesh=el_mesh,
-            in_specs=(op_specs, P()) + (st_spec,) * 2,
-            out_specs=P(), check_vma=False)
-        return fn(sb.ops, cs, tgt_pk, zero_pk)
-
-    vg = jax.jit(jax.value_and_grad(total))
+    total = jax.shard_map(
+        loss_local, mesh=el_mesh,
+        in_specs=(context_shard_specs(ctx), tb_specs, P(), el2),
+        out_specs=P())
+    vg = jax.jit(jax.value_and_grad(
+        lambda cs: total(ctx, tables, cs, target)))
     opt = optax.adam(0.5)
     cs = jnp.zeros((n_steps, 2), jnp.float32)
     state = opt.init(cs)
@@ -127,16 +89,15 @@ def main(ndev=None, n_steps=8, iters=30):
         v, g = vg(cs)
         upd, state = opt.update(g, state, cs)
         cs = optax.apply_updates(cs, upd)
-        if v0 is None:
-            v0 = float(v)
+        v0 = float(v) if v0 is None else v0
         if i % 10 == 0 or i == iters - 1:
             print(f"iter {i:3d}: cost {float(v):.6f}", flush=True)
     vf = float(vg(cs)[0])
-    print(f"cost {v0:.6f} -> {vf:.6f} ({vf / v0:.3f}x) over {ndev} shards")
+    print(f"cost {v0:.6f} -> {vf:.6f} ({vf / v0:.3f}x) over {ndev} shards on "
+          f"{devices[0].platform}")
     print(f"recovered controls (step 0): {np.asarray(cs[0])} "
           f"vs reference {np.asarray(cs_ref[0])}")
     assert vf < 0.05 * v0, "optimization failed to reduce the cost"
-    print("done: multi-chip differentiable MPC over controls OK")
 
 
 if __name__ == "__main__":

@@ -1,11 +1,11 @@
 #!/usr/bin/env python
 """Batched shooting MPC over shallow-water dynamics — the north-star
-workload (BASELINE.json): hundreds of scenarios per chip, each optimizing a
+workload (BASELINE.json): hundreds of scenarios per device, each optimizing a
 control sequence (two Gaussian momentum sources) to steer the free surface
 toward a scenario-specific target elevation field.
 
-Runs the fused Pallas path (kernelized rollout + hand-written adjoint)
-when shapes allow, and prints per-scenario cost reduction and throughput.
+Runs `solve_mpc` vmapped over scenarios on the dense-trace RHS, and prints
+per-scenario cost reduction and throughput.
 """
 import os
 import sys
@@ -18,18 +18,18 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from blitzdg_tpu.mesh import read_gmsh, box_triangles
-from blitzdg_tpu.mpc import MPCProblem, build_pallas_mpc, solve_mpc_pallas
-from blitzdg_tpu.ops.sw2d import SWPhysics, SWState
-from blitzdg_tpu.ops.sw2d_dense import build_dense_trace_ops
-from blitzdg_tpu.specgrid.triangle import build_triangle_context
+from blitzdg_jax.mesh import box_triangles
+from blitzdg_jax.config import enable_compile_cache
+from blitzdg_jax.mpc import MPCProblem, solve_mpc
+from blitzdg_jax.ops.sw2d import SWPhysics, SWState
+from blitzdg_jax.ops.sw2d_dense import build_dense_trace_ops
+from blitzdg_jax.specgrid.triangle import build_triangle_context
 
 
 def main():
+    enable_compile_cache()
     N, BATCH, HORIZON, SPC, ITERS = 1, 256, 8, 4, 30
-    ref = "/root/reference/input/coarse_box.msh"
-    mesh = read_gmsh(ref) if os.path.exists(ref) else box_triangles(4, 5)
-    ctx = build_triangle_context(N, mesh, filter_cutoff=0.9 * N,
+    ctx = build_triangle_context(N, box_triangles(4, 5), filter_cutoff=0.9 * N,
                                  filter_order=N, dtype=jnp.float32)
     phys = SWPhysics(g=9.81)
     prob = MPCProblem(ctx=ctx, phys=phys, dt=2e-3, horizon=HORIZON,
@@ -37,16 +37,17 @@ def main():
                       r_control=1e-8, dense_ops=build_dense_trace_ops(ctx))
     print(f"K={ctx.k_elem}, N={N}, scenarios={BATCH}, horizon={HORIZON}")
 
-    bump = np.exp(-8.0 * (np.asarray(ctx.x) ** 2 + np.asarray(ctx.y) ** 2))
-    pm = build_pallas_mpc(prob, np.stack([bump, 0 * bump]),
-                          np.stack([0 * bump, bump]), tile_b=128)
+    bump = jnp.exp(-8.0 * (ctx.x ** 2 + ctx.y ** 2))
+
+    def forcing(c, control, state, t):
+        return jnp.zeros_like(state.h), control[0] * bump, control[1] * bump
 
     h0 = jnp.full((BATCH, ctx.k_elem, ctx.n_p), 10.0, jnp.float32)
     states = SWState(h=h0, hu=jnp.zeros_like(h0), hv=jnp.zeros_like(h0))
 
     # reachable targets: the elevation field produced by a known
     # per-scenario control sequence (the optimizer must rediscover it)
-    from blitzdg_tpu.mpc import rollout_controls
+    from blitzdg_jax.mpc import rollout_controls
 
     offs = jnp.linspace(0.2, 1.0, BATCH, dtype=jnp.float32)
 
@@ -54,18 +55,13 @@ def main():
         c_true = jnp.stack([o * jnp.ones(HORIZON), -0.5 * o * jnp.ones(HORIZON)],
                            axis=-1).astype(jnp.float32)
         s0 = SWState(h=h0[0], hu=jnp.zeros_like(h0[0]), hv=jnp.zeros_like(h0[0]))
-        forcing = lambda c, control, state, t: (
-            jnp.zeros_like(state.h),
-            control[0] * jnp.asarray(bump, state.h.dtype),
-            control[1] * jnp.asarray(bump, state.h.dtype),
-        )
         final, _ = rollout_controls(prob, s0, c_true, forcing)
         return final.h - 10.0
 
     targets = jax.jit(jax.vmap(gen_target))(offs).astype(jnp.float32)
 
-    solve = jax.jit(lambda s, t: solve_mpc_pallas(
-        prob, pm, s, t, 2, iters=ITERS, learning_rate=0.05))
+    solve = jax.jit(jax.vmap(lambda s, t: solve_mpc(
+        prob, s, t, forcing, 2, iters=ITERS, learning_rate=0.05)))
     sol = solve(states, targets)
     jax.block_until_ready(sol.cost)
 
@@ -74,7 +70,7 @@ def main():
     jax.block_until_ready(sol.cost)
     dt_wall = time.perf_counter() - t0
 
-    hist = np.asarray(sol.cost_history)  # (iters, B)
+    hist = np.asarray(sol.cost_history).T  # (iters, B)
     print(f"cost: {hist[0].mean():.3e} -> {hist[-1].mean():.3e} "
           f"(mean over {BATCH} scenarios, {ITERS} Adam iters)")
     print(f"throughput: {BATCH / dt_wall:.1f} MPC solves/s")

@@ -15,9 +15,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from blitzdg_tpu.ops.poisson import apply_mass, poisson1d_op
-from blitzdg_tpu.solvers.krylov import gmres
-from blitzdg_tpu.specgrid.nodes1d import build_nodes1d
+from blitzdg_jax.ops.poisson import apply_mass, poisson1d_op
+from blitzdg_jax.solvers.krylov import gmres
+from blitzdg_jax.specgrid.nodes1d import build_nodes1d
 
 
 def main():
@@ -29,7 +29,7 @@ def main():
     b = apply_mass(ctx, f).reshape(-1)
 
     # the reference's relTol=1e-6 assumes f64; clamp to what the working
-    # dtype can reach (f32 on TPU has a relative-residual floor ~1e-5)
+    # dtype can reach (float32 has a relative-residual floor ~1e-5)
     tol = max(1e-6, 100.0 * float(jnp.finfo(jnp.result_type(b)).eps))
 
     @jax.jit

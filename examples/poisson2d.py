@@ -16,10 +16,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from blitzdg_tpu.mesh import box_triangles, read_gmsh
-from blitzdg_tpu.ops.poisson import assemble_poisson2d, poisson2d_op
-from blitzdg_tpu.solvers.krylov import gmres
-from blitzdg_tpu.specgrid.triangle import build_triangle_context
+from blitzdg_jax.mesh import box_triangles, read_gmsh
+from blitzdg_jax.ops.poisson import assemble_poisson2d, poisson2d_op
+from blitzdg_jax.solvers.krylov import gmres
+from blitzdg_jax.specgrid.triangle import build_triangle_context
 
 
 def main():
@@ -45,8 +45,8 @@ def main():
 
     # block-Jacobi preconditioned CG on the symmetrized operator (the
     # reference solves unpreconditioned — solvers/precon.py is new)
-    from blitzdg_tpu.ops.poisson import apply_mass
-    from blitzdg_tpu.solvers import block_jacobi_from_matvec, cg
+    from blitzdg_jax.ops.poisson import apply_mass
+    from blitzdg_jax.solvers import block_jacobi_from_matvec, cg
 
     b_sym = -apply_mass(ctx, f).reshape(-1)
     mv_sym = lambda v: -poisson2d_op(

@@ -18,9 +18,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from blitzdg_tpu.context import BC_OUT, BC_WALL
-from blitzdg_tpu.mesh import box_triangles
-from blitzdg_tpu.ops.sw2d import (
+from blitzdg_jax.context import BC_OUT, BC_WALL
+from blitzdg_jax.mesh import box_triangles
+from blitzdg_jax.ops.sw2d import (
     SWPhysics,
     SWState,
     apply_filter,
@@ -28,9 +28,9 @@ from blitzdg_tpu.ops.sw2d import (
     sw2d_rhs,
     sw2d_timestep,
 )
-from blitzdg_tpu.specgrid.triangle import build_triangle_context
-from blitzdg_tpu.timestepping import ssprk2_step
-from blitzdg_tpu.utils import build_sponge_coefficient, instability_guard
+from blitzdg_jax.specgrid.triangle import build_triangle_context
+from blitzdg_jax.timestepping import ssprk2_step
+from blitzdg_jax.utils import build_sponge_coefficient, instability_guard
 
 
 def main():

@@ -13,17 +13,17 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from blitzdg_tpu.mesh import disk_triangles
-from blitzdg_tpu.mesh.curved import (
+from blitzdg_jax.mesh import disk_triangles
+from blitzdg_jax.mesh.curved import (
     circle_projection,
     gordon_hall_deform,
     snap_boundary_vertices,
 )
-from blitzdg_tpu.ops.sw2d import SWPhysics
-from blitzdg_tpu.ops.sw2d_curved import SWStateTracer, sw2d_curved_rhs
-from blitzdg_tpu.specgrid.cubature import build_cubature_context, build_gauss_face_context
-from blitzdg_tpu.specgrid.triangle import build_triangle_context
-from blitzdg_tpu.timestepping import ssprk2_step
+from blitzdg_jax.ops.sw2d import SWPhysics
+from blitzdg_jax.ops.sw2d_curved import SWStateTracer, sw2d_curved_rhs
+from blitzdg_jax.specgrid.cubature import build_cubature_context, build_gauss_face_context
+from blitzdg_jax.specgrid.triangle import build_triangle_context
+from blitzdg_jax.timestepping import ssprk2_step
 
 
 def main():

@@ -17,10 +17,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from blitzdg_tpu.mesh import box_quads
-from blitzdg_tpu.ops.sw2d import SWPhysics, SWState, apply_filter, sw2d_rhs, sw2d_timestep
-from blitzdg_tpu.specgrid.quad import build_quad_context
-from blitzdg_tpu.timestepping import ssprk2_step
+from blitzdg_jax.mesh import box_quads
+from blitzdg_jax.ops.sw2d import SWPhysics, SWState, apply_filter, sw2d_rhs, sw2d_timestep
+from blitzdg_jax.specgrid.quad import build_quad_context
+from blitzdg_jax.timestepping import ssprk2_step
 
 
 def element_mass(ctx, h):

@@ -1,5 +1,5 @@
 """Independent 1D nodal-DG advection oracle — pure numpy, NO imports from
-blitzdg_tpu — written directly from the standard nodal-DG construction
+blitzdg_jax — written directly from the standard nodal-DG construction
 (Hesthaven & Warburton, "Nodal Discontinuous Galerkin Methods", ch. 2-3):
 orthonormal Jacobi polynomials by three-term recurrence, Gauss-Lobatto
 nodes by Golub-Welsch, V / Vr / Dr, Lift = V V^T E, upwind flux, LSERK4.

@@ -1,5 +1,5 @@
 """Independent 1D viscous-Burgers LDG oracle — pure numpy, NO imports from
-blitzdg_tpu (shares only the from-the-book 1D nodal-DG builders of
+blitzdg_jax (shares only the from-the-book 1D nodal-DG builders of
 advec1d_oracle). Scheme: the standard NUDG BurgersRHS1D LDG construction
 (Hesthaven & Warburton ch. 7 / Codes1D) that the reference's computeRHS
 also follows (/root/reference/src/burgers1d/main.cpp:127-228):

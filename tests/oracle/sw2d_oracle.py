@@ -1,5 +1,5 @@
 """Independent 2D nodal-DG shallow-water oracle — pure numpy, NO imports
-from blitzdg_tpu — written directly from the standard nodal-DG triangle
+from blitzdg_jax — written directly from the standard nodal-DG triangle
 construction (Hesthaven & Warburton, "Nodal Discontinuous Galerkin
 Methods", ch. 6: warp-and-blend nodes, Koornwinder-Dubiner orthonormal
 simplex basis, V/Vr/Vs, Dr/Ds, Lift via edge mass matrices, geometric

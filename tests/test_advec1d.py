@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from blitzdg_tpu.ops.advec1d import advec1d_rhs
-from blitzdg_tpu.specgrid.nodes1d import build_nodes1d
-from blitzdg_tpu.timestepping import integrate, lserk4_step
+from blitzdg_jax.ops.advec1d import advec1d_rhs
+from blitzdg_jax.specgrid.nodes1d import build_nodes1d
+from blitzdg_jax.timestepping import integrate, lserk4_step
 
 
 def reference_config():
@@ -46,7 +46,7 @@ def test_advec1d_gaussian_transport_error():
 
     # Non-circular parity (BASELINE.md 1e-6 bar): tests/oracle/advec1d_oracle
     # is an INDEPENDENT from-the-book numpy nodal-DG implementation (no
-    # blitzdg_tpu imports) of the reference config #1
+    # blitzdg_jax imports) of the reference config #1
     # (advec1d/main.cpp:38-48, error semantics :113-119). The framework
     # solution must match the oracle's full final solution to 1e-6, and the
     # discretization error itself must stay spectrally small.

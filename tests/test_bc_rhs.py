@@ -4,10 +4,10 @@ solutions, the heat2d implicit path."""
 import numpy as np
 import scipy.sparse.linalg as spla
 
-from blitzdg_tpu.context import BC_DIRICHLET, BC_NEUMAN, BC_WALL
-from blitzdg_tpu.mesh import box_triangles
-from blitzdg_tpu.ops.poisson import assemble_bc_rhs, assemble_poisson2d
-from blitzdg_tpu.specgrid.triangle import build_triangle_context
+from blitzdg_jax.context import BC_DIRICHLET, BC_NEUMAN, BC_WALL
+from blitzdg_jax.mesh import box_triangles
+from blitzdg_jax.ops.poisson import assemble_bc_rhs, assemble_poisson2d
+from blitzdg_jax.specgrid.triangle import build_triangle_context
 
 
 def face_midpoints(mesh):

@@ -7,9 +7,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from blitzdg_tpu.ops.burgers1d import burgers1d_rhs, burgers_exact
-from blitzdg_tpu.specgrid.nodes1d import build_nodes1d
-from blitzdg_tpu.timestepping import integrate, lserk4_step
+from blitzdg_jax.ops.burgers1d import burgers1d_rhs, burgers_exact
+from blitzdg_jax.specgrid.nodes1d import build_nodes1d
+from blitzdg_jax.timestepping import integrate, lserk4_step
 
 
 def test_burgers1d_traveling_wave():

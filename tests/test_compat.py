@@ -3,7 +3,7 @@ shapes and the reference advec1d.py numpy driver pattern end-to-end."""
 import numpy as np
 import pytest
 
-from blitzdg_tpu import compat as dg
+from blitzdg_jax import compat as dg
 
 
 def test_nodes1d_api_shapes():
@@ -92,7 +92,7 @@ def test_mesh_manager_and_triangle_provisioner():
 
 
 def test_poisson_sparse_matrix_triplets():
-    from blitzdg_tpu.mesh import box_triangles
+    from blitzdg_jax.mesh import box_triangles
 
     m = dg.MeshManager()
     mesh = box_triangles(4, 4)
@@ -112,7 +112,7 @@ def test_poisson_sparse_matrix_triplets():
 def test_vtk_outputter(tmp_path):
     import os
 
-    from blitzdg_tpu.mesh import box_triangles
+    from blitzdg_jax.mesh import box_triangles
 
     m = dg.MeshManager()
     mesh = box_triangles(2, 2)
@@ -131,7 +131,7 @@ def test_compute_differentiation_matrices():
     coords differentiate polynomials exactly."""
     import numpy as np
 
-    from blitzdg_tpu import compat
+    from blitzdg_jax import compat
 
     mm = compat.MeshManager()
     mm.buildMesh(np.array([[0, 1, 2]]),

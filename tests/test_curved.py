@@ -4,19 +4,19 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from blitzdg_tpu.mesh import box_triangles, disk_triangles
-from blitzdg_tpu.mesh.curved import circle_projection, gordon_hall_deform, snap_boundary_vertices
-from blitzdg_tpu.mesh.periodic import make_periodic
-from blitzdg_tpu.ops.limiters import minmod, positivity_preserving_limiter, surface_reconstruction
-from blitzdg_tpu.ops.sw2d import SWPhysics
-from blitzdg_tpu.ops.sw2d_curved import SWStateTracer, sw2d_curved_rhs
-from blitzdg_tpu.specgrid.cubature import (
+from blitzdg_jax.mesh import box_triangles, disk_triangles
+from blitzdg_jax.mesh.curved import circle_projection, gordon_hall_deform, snap_boundary_vertices
+from blitzdg_jax.mesh.periodic import make_periodic
+from blitzdg_jax.ops.limiters import minmod, positivity_preserving_limiter, surface_reconstruction
+from blitzdg_jax.ops.sw2d import SWPhysics
+from blitzdg_jax.ops.sw2d_curved import SWStateTracer, sw2d_curved_rhs
+from blitzdg_jax.specgrid.cubature import (
     build_cubature_context,
     build_gauss_face_context,
     triangle_cubature,
 )
-from blitzdg_tpu.specgrid.triangle import build_triangle_context, triangle_nodes, vandermonde_2d
-from blitzdg_tpu.timestepping import ssprk2_step
+from blitzdg_jax.specgrid.triangle import build_triangle_context, triangle_nodes, vandermonde_2d
+from blitzdg_jax.timestepping import ssprk2_step
 
 
 class TestCubatureRules:
@@ -48,7 +48,7 @@ class TestCubatureRules:
 
         import pytest
 
-        from blitzdg_tpu.specgrid.cubature import duffy_cubature
+        from blitzdg_jax.specgrid.cubature import duffy_cubature
 
         path = os.path.join(os.path.dirname(triangle_cubature.__code__
                                             .co_filename),
@@ -251,7 +251,7 @@ class TestCurvedPoisson:
     on cubature/Gauss contexts per SURVEY §7.1)."""
 
     def _box(self, N=4, cells=6):
-        from blitzdg_tpu.specgrid.triangle import build_triangle_context
+        from blitzdg_jax.specgrid.triangle import build_triangle_context
 
         mesh = box_triangles(cells, cells)
         ctx = build_triangle_context(N, mesh)
@@ -260,7 +260,7 @@ class TestCurvedPoisson:
         return ctx, cub, gauss
 
     def test_symmetric_positive(self):
-        from blitzdg_tpu.ops.poisson import poisson2d_curved_op
+        from blitzdg_jax.ops.poisson import poisson2d_curved_op
 
         ctx, cub, gauss = self._box(N=3, cells=4)
         A = lambda v: poisson2d_curved_op(
@@ -275,8 +275,8 @@ class TestCurvedPoisson:
         assert float(jnp.vdot(v, A(v))) > 0
 
     def test_manufactured_solution_cg(self):
-        from blitzdg_tpu.ops.poisson import apply_mass_curved, poisson2d_curved_op
-        from blitzdg_tpu.solvers.krylov import CONV_SUCCESS, cg
+        from blitzdg_jax.ops.poisson import apply_mass_curved, poisson2d_curved_op
+        from blitzdg_jax.solvers.krylov import CONV_SUCCESS, cg
 
         ctx, cub, gauss = self._box(N=4, cells=6)
         x, y = np.asarray(ctx.x), np.asarray(ctx.y)
@@ -297,9 +297,9 @@ class TestCurvedPoisson:
         """-lap u = 4 on the unit disk, u=0 on the (curved) boundary:
         exact u = 1 - x^2 - y^2. Gordon-Hall curved elements must beat the
         straight-sided operator near the circular boundary."""
-        from blitzdg_tpu.ops.poisson import apply_mass_curved, poisson2d_curved_op
-        from blitzdg_tpu.solvers.krylov import CONV_SUCCESS, cg
-        from blitzdg_tpu.specgrid.triangle import build_triangle_context
+        from blitzdg_jax.ops.poisson import apply_mass_curved, poisson2d_curved_op
+        from blitzdg_jax.solvers.krylov import CONV_SUCCESS, cg
+        from blitzdg_jax.specgrid.triangle import build_triangle_context
 
         N = 4
         mesh = disk_triangles(2, radius=1.0)
@@ -336,11 +336,11 @@ class TestReferenceScaleCircle8km:
     def _build(cls):
         import jax.numpy as jnp
 
-        from blitzdg_tpu.mesh.curved import (
+        from blitzdg_jax.mesh.curved import (
             boundary_loops,
             spline_boundary_projection,
         )
-        from blitzdg_tpu.mesh.gmsh import read_gmsh
+        from blitzdg_jax.mesh.gmsh import read_gmsh
 
         if not hasattr(cls, "_cache"):
             mesh = read_gmsh("/root/reference/input/R_8km_circle.msh")
@@ -394,13 +394,13 @@ class TestReferenceScaleCircle8km:
         sw2d_curved.py:166-185), Coriolis, sponge near the open boundary —
         stays finite and conserves mass to quadrature accuracy while the
         walls are closed (flux only through the small forced arc)."""
-        from blitzdg_tpu.context import BC_OUT
-        from blitzdg_tpu.mesh.curved import (
+        from blitzdg_jax.context import BC_OUT
+        from blitzdg_jax.mesh.curved import (
             boundary_loops,
             spline_boundary_projection,
         )
-        from blitzdg_tpu.mesh.gmsh import read_gmsh
-        from blitzdg_tpu.utils import build_sponge_coefficient
+        from blitzdg_jax.mesh.gmsh import read_gmsh
+        from blitzdg_jax.utils import build_sponge_coefficient
 
         mesh = read_gmsh("/root/reference/input/R_8km_circle.msh")
         bc = np.asarray(mesh.bc_type).copy()
@@ -478,7 +478,7 @@ class TestCurvedWetDry:
         """Gordon-Hall disk with a sloping beach: the bed rises above the
         still-water level toward the east rim, so a dry crescent exists;
         an initial bump drives runup onto it."""
-        from blitzdg_tpu.mesh.generators import disk_triangles
+        from blitzdg_jax.mesh.generators import disk_triangles
 
         mesh = disk_triangles(2, radius=1.0)
         proj = circle_projection(0.0, 0.0, 1.0)
@@ -497,8 +497,8 @@ class TestCurvedWetDry:
         return ctx, cub, gauss, H, zx, zy
 
     def test_curved_runup_stable_positive(self):
-        from blitzdg_tpu.ops.sw2d import SWPhysics
-        from blitzdg_tpu.ops.sw2d_curved import (SWStateTracer,
+        from blitzdg_jax.ops.sw2d import SWPhysics
+        from blitzdg_jax.ops.sw2d_curved import (SWStateTracer,
                                                  ssprk2_step_curved_wetdry)
 
         H_FLOOR = 1e-3
@@ -536,8 +536,8 @@ class TestCurvedWetDry:
         """Flat free surface with a dry region must stay nearly at rest
         (the curved-path analog of the beach lake-at-rest check; the
         reconstruction keeps spurious front momentum at O(g h_floor))."""
-        from blitzdg_tpu.ops.sw2d import SWPhysics
-        from blitzdg_tpu.ops.sw2d_curved import (SWStateTracer,
+        from blitzdg_jax.ops.sw2d import SWPhysics
+        from blitzdg_jax.ops.sw2d_curved import (SWStateTracer,
                                                  ssprk2_step_curved_wetdry)
 
         H_FLOOR = 1e-3

@@ -32,7 +32,7 @@ jax.config.update("jax_enable_x64", True)
 import numpy as np
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
-from blitzdg_tpu.parallel import distributed_init, make_global_mesh
+from blitzdg_jax.parallel import distributed_init, make_global_mesh
 
 info = distributed_init(f"localhost:{port}", 2, pid)
 assert info["n_processes"] == 2, info
@@ -66,11 +66,11 @@ for shard in nbr.addressable_shards:
                                (j - 1) % NDEV)
 
 # ---- 2. element-sharded ppermute-halo RHS across the 2 processes ----
-from blitzdg_tpu.mesh import box_triangles
-from blitzdg_tpu.ops.sw2d import SWPhysics, SWState, sw2d_rhs
-from blitzdg_tpu.parallel import (build_halo_plan, context_shard_specs,
+from blitzdg_jax.mesh import box_triangles
+from blitzdg_jax.ops.sw2d import SWPhysics, SWState, sw2d_rhs
+from blitzdg_jax.parallel import (build_halo_plan, context_shard_specs,
                                   halo_sw2d_rhs, halo_tables, partition_mesh)
-from blitzdg_tpu.specgrid.triangle import build_triangle_context
+from blitzdg_jax.specgrid.triangle import build_triangle_context
 
 mesh0 = box_triangles(4, 8)  # K = 64, divisible by 4
 mesh2, _, _ = partition_mesh(mesh0, NDEV)
@@ -141,126 +141,3 @@ def test_two_process_distributed_psum_ppermute_halo(tmp_path):
     for i, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"process {i} failed:\n{out}"
         assert f"DIST_OK pid={i}" in out, out
-
-
-_WORKER_BLOCKED = r'''
-import os, sys
-port, pid = sys.argv[1], int(sys.argv[2])
-os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
-sys.path.insert(0, sys.argv[3])
-import jax
-jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_enable_x64", True)
-import numpy as np
-import jax.numpy as jnp
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from blitzdg_tpu.mesh import box_triangles
-from blitzdg_tpu.ops.sw2d import SWPhysics, SWState, sw2d_rhs, apply_filter
-from blitzdg_tpu.parallel import distributed_init, make_global_mesh, partition_mesh
-from blitzdg_tpu.parallel.blocked_shard import (
-    build_sharded_blocked, initial_send_buffer,
-    make_sharded_blocked_step_fused, pack_local, unpack_local)
-from blitzdg_tpu.specgrid.triangle import build_triangle_context
-from blitzdg_tpu.timestepping import ssprk2_step
-
-info = distributed_init(f"localhost:{port}", 2, pid)
-assert info["n_devices_global"] == 4, info
-NDEV = 4
-gmesh = make_global_mesh(n_scenario=1, n_element=NDEV)
-el_mesh = Mesh(gmesh.devices.reshape(NDEV), ("element",))
-
-mesh0 = box_triangles(8, 8)  # K = 128, 32 per shard
-mesh2d, _, _ = partition_mesh(mesh0, NDEV)
-ctx = build_triangle_context(1, mesh2d, filter_cutoff=0.9, filter_order=1)
-phys = SWPhysics(g=9.81)
-sb = build_sharded_blocked(ctx, phys, NDEV, dtype=jnp.float64)
-meta = sb.meta
-DT, NSTEP = 5e-4, 3
-k_loc = sb.k_loc
-
-eta = jnp.exp(-8.0 * (ctx.x ** 2 + ctx.y ** 2))
-state = SWState(h=10.0 + eta, hu=0.1 * eta, hv=jnp.zeros_like(eta))
-ref = state
-post = lambda f: apply_filter(ctx, f)
-for i in range(NSTEP):
-    ref = ssprk2_step(lambda s, t: sw2d_rhs(ctx, s, t, phys),
-                      ref, i * DT, DT, post_stage=post)
-
-step = make_sharded_blocked_step_fused(sb, DT, interpret=True)
-packed_h = tuple(np.concatenate([
-    np.asarray(pack_local(meta, f[s * k_loc:(s + 1) * k_loc]))
-    for s in range(NDEV)], axis=0) for f in state)
-
-def globalize(arr, spec):
-    shd = NamedSharding(el_mesh, spec)
-    return jax.make_array_from_callback(arr.shape, shd,
-                                        lambda idx: arr[idx])
-
-op_specs = jax.tree.map(
-    lambda a: P("element", *([None] * (a.ndim - 1))), sb.ops)
-st_spec = P("element", None, None, None)
-ops_g = jax.tree.map(lambda a, s: globalize(np.asarray(a), s),
-                     sb.ops, op_specs)
-packed_g = tuple(globalize(a, st_spec) for a in packed_h)
-
-def roll(ops_l, *pk):
-    sb0 = initial_send_buffer(sb, ops_l, tuple(pk))
-
-    def body(carry, _):
-        return step(ops_l, carry, 0.0), None
-
-    (out, _), _ = jax.lax.scan(body, (tuple(pk), sb0), None,
-                               length=NSTEP)
-    return out
-
-fn = jax.jit(jax.shard_map(
-    roll, mesh=el_mesh, in_specs=(op_specs,) + (st_spec,) * 3,
-    out_specs=(st_spec,) * 3, check_vma=False))
-out = fn(ops_g, *packed_g)
-ref_np = jax.tree.map(np.asarray, ref)
-for name, field, rf in zip(("h", "hu", "hv"), out, ref_np):
-    for shard in field.addressable_shards:
-        s = shard.index[0].start
-        want = rf[s * k_loc:(s + 1) * k_loc]
-        got = np.asarray(unpack_local(meta, np.asarray(shard.data)))
-        np.testing.assert_allclose(got, want, atol=1e-12,
-                                   err_msg=f"{name} shard {s}")
-print(f"DIST_BLOCKED_OK pid={pid}")
-'''
-
-
-def test_two_process_sharded_blocked_kernel(tmp_path):
-    """The DEPLOYABLE sharded-blocked path (fused Pallas stage kernels +
-    kernel-I/O lean exchange) across 2 REAL processes: the ppermutes ride
-    the cross-process gloo ring while each process runs its shards'
-    interpret-mode kernels; every addressable output shard must match the
-    locally computed single-device XLA rollout at 1e-12."""
-    worker = tmp_path / "worker_blocked.py"
-    worker.write_text(_WORKER_BLOCKED)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
-    procs = [
-        subprocess.Popen(
-            [sys.executable, str(worker), str(port), str(i), repo],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env=env)
-        for i in range(2)
-    ]
-    outs = []
-    try:
-        for p in procs:
-            out, _ = p.communicate(timeout=240)
-            outs.append(out)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for i, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"process {i} failed:\n{out}"
-        assert f"DIST_BLOCKED_OK pid={i}" in out, out

@@ -5,16 +5,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from blitzdg_tpu.config import namelist_get, read_namelist
-from blitzdg_tpu.mesh import box_quads, box_triangles
-from blitzdg_tpu.ops.ins2d import (
+from blitzdg_jax.config import namelist_get, read_namelist
+from blitzdg_jax.mesh import box_quads, box_triangles
+from blitzdg_jax.ops.ins2d import (
     INSState,
     divergence,
     ins2d_step,
     pressure_project,
 )
-from blitzdg_tpu.specgrid.quad import build_quad_context
-from blitzdg_tpu.specgrid.triangle import build_triangle_context
+from blitzdg_jax.specgrid.quad import build_quad_context
+from blitzdg_jax.specgrid.triangle import build_triangle_context
 
 
 def test_projection_reduces_divergence():
@@ -92,7 +92,7 @@ class TestRotationalForm:
 
     def _divfree(self, ctx):
         # u = psi_y, v = -psi_x with psi = sin(pi x) sin(pi y): div-free
-        from blitzdg_tpu.ops.ins2d import INSState
+        from blitzdg_jax.ops.ins2d import INSState
 
         u = jnp.pi * jnp.sin(jnp.pi * ctx.x) * jnp.cos(jnp.pi * ctx.y)
         v = -jnp.pi * jnp.cos(jnp.pi * ctx.x) * jnp.sin(jnp.pi * ctx.y)
@@ -104,7 +104,7 @@ class TestRotationalForm:
         -(u.grad)u — the rotational RHS must reproduce the analytic
         advection term to spectral accuracy in the element interiors
         (face jumps vanish for globally smooth fields)."""
-        from blitzdg_tpu.ops.ins2d import ins2d_rotational_rhs
+        from blitzdg_jax.ops.ins2d import ins2d_rotational_rhs
 
         ctx = build_quad_context(8, box_quads(3, 3))
         s = self._divfree(ctx)
@@ -127,7 +127,7 @@ class TestRotationalForm:
     def test_rotational_matches_conservative_divfree(self):
         """Rotational and conservative advection agree at discretization
         accuracy for divergence-free velocity."""
-        from blitzdg_tpu.ops.ins2d import (ins2d_advection_rhs,
+        from blitzdg_jax.ops.ins2d import (ins2d_advection_rhs,
                                            ins2d_rotational_rhs)
 
         ctx = build_quad_context(6, box_quads(4, 4))
@@ -145,7 +145,7 @@ class TestRotationalForm:
 
     def test_rotational_step_stable(self):
         """ins2d_step(form='rotational') runs the projection loop stably."""
-        from blitzdg_tpu.ops.ins2d import INSState, ins2d_step
+        from blitzdg_jax.ops.ins2d import INSState, ins2d_step
 
         ctx = build_quad_context(2, box_quads(4, 4), filter_cutoff=1.5,
                                  filter_order=4)
@@ -165,7 +165,7 @@ def test_advection_dissipation_sign():
     at an outflow face the correction (F(qM).n - F*) must VANISH
     (numerical flux = upwind = interior state), which fixes the sign to
     -lam*(qM - qP), the reference's `- spdMax*drho` convention."""
-    from blitzdg_tpu.ops.ins2d import INSState, ins2d_advection_rhs
+    from blitzdg_jax.ops.ins2d import INSState, ins2d_advection_rhs
 
     ctx = build_quad_context(3, box_quads(6, 6))
     rho = jnp.exp(-40.0 * ((ctx.x - 0.3) ** 2 + ctx.y**2))

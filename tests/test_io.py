@@ -7,13 +7,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from blitzdg_tpu.io.checkpoint import restore_checkpoint, save_checkpoint
-from blitzdg_tpu.io.csv import read_field, write_field
-from blitzdg_tpu.io.vtk import split_quad_indices, split_triangle_indices, write_vtu
-from blitzdg_tpu.mesh import box_quads, box_triangles, read_gmsh, write_gmsh
-from blitzdg_tpu.ops.sw2d import SWState
-from blitzdg_tpu.specgrid.quad import build_quad_context
-from blitzdg_tpu.specgrid.triangle import build_triangle_context
+from blitzdg_jax.io.checkpoint import restore_checkpoint, save_checkpoint
+from blitzdg_jax.io.csv import read_field, write_field
+from blitzdg_jax.io.vtk import split_quad_indices, split_triangle_indices, write_vtu
+from blitzdg_jax.mesh import box_quads, box_triangles, read_gmsh, write_gmsh
+from blitzdg_jax.ops.sw2d import SWState
+from blitzdg_jax.specgrid.quad import build_quad_context
+from blitzdg_jax.specgrid.triangle import build_triangle_context
 
 
 def test_split_triangle_counts():
@@ -112,10 +112,10 @@ def test_checkpoint_mpc_resume(tmp_path):
     10-iteration solve (optimizer-state round trip, VERDICT r1 item 10)."""
     import optax
 
-    from blitzdg_tpu.mesh import box_triangles
-    from blitzdg_tpu.mpc import MPCProblem, mpc_cost
-    from blitzdg_tpu.ops.sw2d import SWPhysics
-    from blitzdg_tpu.specgrid.triangle import build_triangle_context
+    from blitzdg_jax.mesh import box_triangles
+    from blitzdg_jax.mpc import MPCProblem, mpc_cost
+    from blitzdg_jax.ops.sw2d import SWPhysics
+    from blitzdg_jax.specgrid.triangle import build_triangle_context
 
     ctx = build_triangle_context(1, box_triangles(2, 2))
     prob = MPCProblem(ctx=ctx, phys=SWPhysics(g=9.81), dt=1e-3, horizon=2,
@@ -173,7 +173,7 @@ def test_csvread_fixtures():
 
     import pytest
 
-    from blitzdg_tpu.io.csv import csvread
+    from blitzdg_jax.io.csv import csvread
 
     ref = "/root/reference/input"
     if not os.path.exists(ref):
@@ -191,7 +191,7 @@ def test_read_csv_mesh_2box():
 
     import pytest
 
-    from blitzdg_tpu.mesh import read_csv_mesh
+    from blitzdg_jax.mesh import read_csv_mesh
 
     ref = "/root/reference/input"
     if not os.path.exists(ref):
@@ -211,7 +211,7 @@ def test_compat_csv_readers():
 
     import pytest
 
-    from blitzdg_tpu.compat import MeshManager
+    from blitzdg_jax.compat import MeshManager
 
     ref = "/root/reference/input"
     if not os.path.exists(ref):
@@ -227,7 +227,7 @@ def test_read_depth_data(tmp_path):
     per row, element-major fill (node fastest), clip-up at 150 m applied to
     ALL entries — missing trailing values become 150, not 0 (reference
     main.cpp:498-510 clips the whole zero-initialised buffer)."""
-    from blitzdg_tpu.io.csv import read_depth_data
+    from blitzdg_jax.io.csv import read_depth_data
 
     vals = [200.0, 100.0, 175.5, 149.9, 300.0]
     p = tmp_path / "depth.oct"

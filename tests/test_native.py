@@ -2,10 +2,10 @@
 import numpy as np
 import pytest
 
-from blitzdg_tpu import native
-from blitzdg_tpu.mesh import box_triangles, box_quads
-from blitzdg_tpu.mesh.connectivity import build_connectivity as np_connectivity
-from blitzdg_tpu.specgrid.triangle import _build_maps, build_fmask, triangle_nodes
+from blitzdg_jax import native
+from blitzdg_jax.mesh import box_triangles, box_quads
+from blitzdg_jax.mesh.connectivity import build_connectivity as np_connectivity
+from blitzdg_jax.specgrid.triangle import _build_maps, build_fmask, triangle_nodes
 
 pytestmark = pytest.mark.skipif(not native.available(), reason="no native toolchain")
 
@@ -51,7 +51,7 @@ def test_gmsh_parse_matches_python():
     tris, quads, lines, tags = out
     assert tris.shape == (40, 3)
     assert quads.shape[0] == 0
-    from blitzdg_tpu.mesh import read_gmsh
+    from blitzdg_jax.mesh import read_gmsh
 
     mesh = read_gmsh(path)
     # read_gmsh applies CCW re-orientation; compare as vertex sets

@@ -8,15 +8,15 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from blitzdg_tpu.mesh import box_triangles
-from blitzdg_tpu.ops.sw2d import SWPhysics, SWState, sw2d_rhs
-from blitzdg_tpu.parallel import (
+from blitzdg_jax.mesh import box_triangles
+from blitzdg_jax.ops.sw2d import SWPhysics, SWState, sw2d_rhs
+from blitzdg_jax.parallel import (
     make_device_mesh,
     partition_mesh,
     rcb_partition,
     shard_context,
 )
-from blitzdg_tpu.specgrid.triangle import build_triangle_context
+from blitzdg_jax.specgrid.triangle import build_triangle_context
 
 NDEV = 8
 
@@ -46,13 +46,13 @@ def test_graph_partition_cut_quality():
     irregular mesh; 'auto' is never worse than RCB on any mesh."""
     import os
 
-    from blitzdg_tpu.parallel import compute_partition, partition_cut
+    from blitzdg_jax.parallel import compute_partition, partition_cut
 
     paths = ["/root/reference/input/R_8km_circle.msh",
              "/root/reference/input/box.msh"]
     if not all(os.path.exists(p) for p in paths):
         pytest.skip("reference meshes unavailable")
-    from blitzdg_tpu.mesh import read_gmsh
+    from blitzdg_jax.mesh import read_gmsh
 
     beat_rcb_somewhere = False
     for path in paths:
@@ -104,7 +104,7 @@ def test_shard_map_halo_exchange_matches_single(problem):
     """ppermute-halo RHS inside shard_map vs single-device truth (the
     retired all_gather demonstrator's parity test, retargeted at the
     deployable halo path; coastal physics is covered separately below)."""
-    from blitzdg_tpu.parallel import build_halo_plan, halo_sw2d_rhs, halo_tables
+    from blitzdg_jax.parallel import build_halo_plan, halo_sw2d_rhs, halo_tables
 
     ctx, state = problem
     phys = SWPhysics(g=9.81)
@@ -132,7 +132,7 @@ def test_shard_map_halo_exchange_matches_single(problem):
 
 
 def _context_specs(ctx):
-    from blitzdg_tpu.parallel import context_shard_specs
+    from blitzdg_jax.parallel import context_shard_specs
 
     return context_shard_specs(ctx)
 
@@ -142,15 +142,15 @@ def test_halo_coastal_rollout_matches_single():
     tidal BC_OUT forcing + drag + Coriolis) with ppermute halo exchange and
     `lax.pmax` adaptive dt INSIDE shard_map, rolled out for 10 SSP-RK2
     steps, must match the single-device rollout to roundoff."""
-    from blitzdg_tpu.context import BC_OUT
-    from blitzdg_tpu.ops.sw2d import sw2d_timestep
-    from blitzdg_tpu.parallel import (
+    from blitzdg_jax.context import BC_OUT
+    from blitzdg_jax.ops.sw2d import sw2d_timestep
+    from blitzdg_jax.parallel import (
         build_halo_plan,
         halo_sw2d_rhs,
         halo_sw2d_timestep,
         halo_tables,
     )
-    from blitzdg_tpu.timestepping import ssprk2_step
+    from blitzdg_jax.timestepping import ssprk2_step
 
     mesh0 = box_triangles(4, 8)  # K = 64
     # open (tidal) boundary on the east edge
@@ -232,7 +232,7 @@ def test_halo_coastal_rollout_matches_single():
 def test_ppermute_halo_exchange_matches_single(problem):
     """The precomputed-table ppermute halo exchange (communication = the
     cut, not the domain) must reproduce the single-device RHS exactly."""
-    from blitzdg_tpu.parallel import build_halo_plan, halo_sw2d_rhs, halo_tables
+    from blitzdg_jax.parallel import build_halo_plan, halo_sw2d_rhs, halo_tables
 
     ctx, state = problem
     phys = SWPhysics(g=9.81)
@@ -273,8 +273,8 @@ def test_bc_maps_replicated_when_count_equals_k():
     replicate bc_maps, and both sharded ops must stay exact on this mesh
     with data that actually exercises the BCs (nonzero momentum at walls /
     Dirichlet u)."""
-    from blitzdg_tpu.ops.poisson import poisson2d_op
-    from blitzdg_tpu.parallel import (
+    from blitzdg_jax.ops.poisson import poisson2d_op
+    from blitzdg_jax.parallel import (
         build_halo_plan,
         context_shard_specs,
         halo_poisson2d_op,
@@ -335,7 +335,7 @@ def test_distributed_init_single_host_degenerate():
     local topology; make_global_mesh over all (virtual) devices equals the
     single-process mesh, and a pjit matmul over it runs (VERDICT r1 item 9:
     the >=2-host scaling study is one coordinator address away)."""
-    from blitzdg_tpu.parallel import distributed_init, make_global_mesh
+    from blitzdg_jax.parallel import distributed_init, make_global_mesh
 
     info = distributed_init()
     assert info["n_processes"] == 1
@@ -359,8 +359,8 @@ class TestGhostPadding:
     item 4; reference METIS handles any K, MeshManager.cpp:491-544)."""
 
     def _padded_problem(self, n_shards):
-        from blitzdg_tpu.mesh import read_gmsh
-        from blitzdg_tpu.parallel import pad_context, partition_block_sizes
+        from blitzdg_jax.mesh import read_gmsh
+        from blitzdg_jax.parallel import pad_context, partition_block_sizes
 
         mesh0 = read_gmsh("/root/reference/input/box.msh")
         assert mesh0.num_elements % n_shards != 0  # padding is exercised
@@ -376,8 +376,8 @@ class TestGhostPadding:
     def test_padded_rhs_and_dt_match_unpadded(self):
         """Sharded halo RHS + pmax dt on the ghost-padded context equal the
         unsharded, unpadded results bitwise on the real elements."""
-        from blitzdg_tpu.ops.sw2d import sw2d_timestep
-        from blitzdg_tpu.parallel import (
+        from blitzdg_jax.ops.sw2d import sw2d_timestep
+        from blitzdg_jax.parallel import (
             build_halo_plan,
             context_shard_specs,
             halo_sw2d_rhs,
@@ -430,15 +430,15 @@ class TestGhostPadding:
         """Element-sharded CG on the ghost-padded context: zero ghost
         rhs/x0 keeps ghost residuals exactly zero, so inner products and
         iterates match the unpadded single-device solve."""
-        from blitzdg_tpu.ops.poisson import apply_mass, poisson2d_op
-        from blitzdg_tpu.parallel import (
+        from blitzdg_jax.ops.poisson import apply_mass, poisson2d_op
+        from blitzdg_jax.parallel import (
             build_halo_plan,
             context_shard_specs,
             halo_poisson2d_op,
             halo_tables,
         )
-        from blitzdg_tpu.solvers import cg
-        from blitzdg_tpu.solvers.krylov import CONV_SUCCESS
+        from blitzdg_jax.solvers import cg
+        from blitzdg_jax.solvers.krylov import CONV_SUCCESS
 
         ctx, ctx_p, real = self._padded_problem(NDEV)
         tau = float((ctx.n_order + 1) ** 2 * jnp.max(ctx.fscale))
@@ -496,11 +496,11 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp, numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
-from blitzdg_tpu.mesh import read_gmsh
-from blitzdg_tpu.ops.sw2d import SWPhysics, SWState, sw2d_rhs
-from blitzdg_tpu.parallel import (build_halo_plan, context_shard_specs,
+from blitzdg_jax.mesh import read_gmsh
+from blitzdg_jax.ops.sw2d import SWPhysics, SWState, sw2d_rhs
+from blitzdg_jax.parallel import (build_halo_plan, context_shard_specs,
     halo_sw2d_rhs, halo_tables, pad_context, partition_mesh, partition_block_sizes)
-from blitzdg_tpu.specgrid.triangle import build_triangle_context
+from blitzdg_jax.specgrid.triangle import build_triangle_context
 
 NDEV = 16
 mesh0 = read_gmsh("/root/reference/input/coarse_box.msh")
@@ -552,22 +552,22 @@ def test_halo_curved_rhs_matches_single():
     '+' trace via the ppermute halo over the Gauss plan) == the
     single-device sw2d_curved_rhs to roundoff, on a Gordon-Hall-deformed
     disk with wall + tidal BCs and drag/Coriolis (VERDICT r2 item 9)."""
-    from blitzdg_tpu.context import BC_OUT
-    from blitzdg_tpu.mesh import disk_triangles
-    from blitzdg_tpu.mesh.curved import (
+    from blitzdg_jax.context import BC_OUT
+    from blitzdg_jax.mesh import disk_triangles
+    from blitzdg_jax.mesh.curved import (
         circle_projection,
         gordon_hall_deform,
         snap_boundary_vertices,
     )
-    from blitzdg_tpu.ops.sw2d_curved import SWStateTracer, sw2d_curved_rhs
-    from blitzdg_tpu.parallel import (
+    from blitzdg_jax.ops.sw2d_curved import SWStateTracer, sw2d_curved_rhs
+    from blitzdg_jax.parallel import (
         build_gauss_halo_plan,
         cubature_shard_specs,
         gauss_shard_specs,
         halo_sw2d_curved_rhs,
         halo_tables,
     )
-    from blitzdg_tpu.specgrid.cubature import (
+    from blitzdg_jax.specgrid.cubature import (
         build_cubature_context,
         build_gauss_face_context,
     )
@@ -622,622 +622,3 @@ def test_halo_curved_rhs_matches_single():
     for got, want, name in zip(out, ref, ("h", "hu", "hv", "hN")):
         np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                    atol=1e-11, err_msg=name)
-
-
-class TestShardedBlocked:
-    """Blocked Pallas kernel INSIDE shard_map (parallel/blocked_shard.py):
-    per-shard fused stage kernels + ppermute halo between RK stages must
-    reproduce the single-device XLA path exactly (f64 interpret mode)."""
-
-    def test_sharded_blocked_matches_single_device(self):
-        from blitzdg_tpu.ops.sw2d import SWPhysics, SWState, sw2d_rhs, apply_filter
-        from blitzdg_tpu.parallel.blocked_shard import (
-            build_sharded_blocked, make_sharded_blocked_step, pack_local,
-            unpack_local)
-        from blitzdg_tpu.timestepping import ssprk2_step
-        from jax.sharding import Mesh, PartitionSpec as P
-
-        NDEV = 8
-        mesh0 = box_triangles(8, 8)  # K = 128, 16 per shard
-        mesh2d, _, _ = partition_mesh(mesh0, NDEV)
-        ctx = build_triangle_context(1, mesh2d, filter_cutoff=0.9,
-                                     filter_order=1)
-        phys = SWPhysics(g=9.81)
-        sb = build_sharded_blocked(ctx, phys, NDEV, dtype=jnp.float64,
-                                   fold_filter=True)
-        meta = sb.meta
-        fm = np.asarray(ctx.fmask).reshape(-1)
-        DT, NSTEP = 5e-4, 5
-
-        # ---- single-device reference ----
-        eta = jnp.exp(-8.0 * (ctx.x**2 + ctx.y**2))
-        state = SWState(h=10.0 + eta, hu=0.1 * eta, hv=jnp.zeros_like(eta))
-        ref = state
-        post = lambda f: apply_filter(ctx, f)
-        for i in range(NSTEP):
-            ref = ssprk2_step(lambda s, t: sw2d_rhs(ctx, s, t, phys),
-                              ref, i * DT, DT, post_stage=post)
-
-        # ---- sharded blocked rollout ----
-        step = make_sharded_blocked_step(sb, fm, DT, interpret=True)
-        devices = np.array(jax.devices()[:NDEV])
-        el_mesh = Mesh(devices, ("element",))
-
-        k_loc = sb.k_loc
-        # per-shard packed initial state riding the B axis: (NDEV, p, NP, M)
-        # — inside shard_map each shard sees exactly the (1, p, NP, M)
-        # packed form the kernel wants
-        def packed_field(f):
-            return jnp.concatenate([
-                pack_local(meta, f[s * k_loc:(s + 1) * k_loc])
-                for s in range(NDEV)], axis=0)
-
-        packed = tuple(packed_field(f) for f in state)
-        op_specs = jax.tree.map(
-            lambda a: P("element", *([None] * (a.ndim - 1))), sb.ops)
-        tb_specs = tuple(P("element", *([None] * (a.ndim - 1)))
-                         for a in sb.tables)
-        st_spec = P("element", None, None, None)
-
-        def roll(ops_l, tb_l, *pk):
-            def body(carry, _):
-                return step(ops_l, tb_l, carry, 0.0), None
-
-            out, _ = jax.lax.scan(body, tuple(pk), None, length=NSTEP)
-            return out
-
-        fn = jax.jit(jax.shard_map(
-            roll, mesh=el_mesh,
-            in_specs=(op_specs, tb_specs) + (st_spec,) * 3,
-            out_specs=(st_spec,) * 3,
-            check_vma=False))  # pallas_call out_shapes carry no vma info
-        out = fn(sb.ops, sb.tables, *packed)
-
-        for got_packed, want in zip(out, ref):
-            got = jnp.concatenate([
-                unpack_local(meta, got_packed[s:s + 1])
-                for s in range(NDEV)], axis=0)
-            np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                       atol=1e-12)
-
-    def test_fused_sharded_blocked_matches_single_device(self):
-        """The FAST path (kernel-emitted traces + static-index lean
-        exchange) must match the single-device XLA rollout too."""
-        from blitzdg_tpu.ops.sw2d import SWPhysics, SWState, sw2d_rhs, apply_filter
-        from blitzdg_tpu.parallel.blocked_shard import (
-            build_sharded_blocked, initial_send_buffer,
-            make_sharded_blocked_step_fused, pack_local, unpack_local)
-        from blitzdg_tpu.timestepping import ssprk2_step
-        from jax.sharding import Mesh, PartitionSpec as P
-
-        NDEV = 8
-        mesh0 = box_triangles(8, 8)
-        mesh2d, _, _ = partition_mesh(mesh0, NDEV)
-        ctx = build_triangle_context(1, mesh2d, filter_cutoff=0.9,
-                                     filter_order=1)
-        phys = SWPhysics(g=9.81)
-        sb = build_sharded_blocked(ctx, phys, NDEV, dtype=jnp.float64)
-        meta = sb.meta
-        DT, NSTEP = 5e-4, 5
-
-        eta = jnp.exp(-8.0 * (ctx.x**2 + ctx.y**2))
-        state = SWState(h=10.0 + eta, hu=0.1 * eta, hv=jnp.zeros_like(eta))
-        ref = state
-        post = lambda f: apply_filter(ctx, f)
-        for i in range(NSTEP):
-            ref = ssprk2_step(lambda s, t: sw2d_rhs(ctx, s, t, phys),
-                              ref, i * DT, DT, post_stage=post)
-
-        step = make_sharded_blocked_step_fused(sb, DT, interpret=True)
-        el_mesh = Mesh(np.array(jax.devices()[:NDEV]), ("element",))
-        k_loc = sb.k_loc
-        packed = tuple(jnp.concatenate([
-            pack_local(meta, f[s * k_loc:(s + 1) * k_loc])
-            for s in range(NDEV)], axis=0) for f in state)
-        op_specs = jax.tree.map(
-            lambda a: P("element", *([None] * (a.ndim - 1))), sb.ops)
-        st_spec = P("element", None, None, None)
-
-        def roll(ops_l, *pk):
-            sb0 = initial_send_buffer(sb, ops_l, tuple(pk))
-
-            def body(carry, _):
-                return step(ops_l, carry, 0.0), None
-
-            (out, _), _ = jax.lax.scan(body, (tuple(pk), sb0), None,
-                                       length=NSTEP)
-            return out
-
-        fn = jax.jit(jax.shard_map(
-            roll, mesh=el_mesh,
-            in_specs=(op_specs,) + (st_spec,) * 3,
-            out_specs=(st_spec,) * 3,
-            check_vma=False))
-        out = fn(sb.ops, *packed)
-
-        for got_packed, want in zip(out, ref):
-            got = jnp.concatenate([
-                unpack_local(meta, got_packed[s:s + 1])
-                for s in range(NDEV)], axis=0)
-            np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                       atol=1e-12)
-
-    def test_fused_sharded_blocked_coastal_matches_single(self):
-        """Coastal physics (bathymetry + well-balancing + drag + Coriolis
-        + sponge) through the sharded blocked kernel: the coastal terms
-        consume only static per-shard data (the bathymetry '+' traces are
-        precomputed GLOBALLY, so cut faces see the remote element's bed),
-        and the rollout must still match the single-device XLA path."""
-        from blitzdg_tpu.ops.sw2d import (SWPhysics, SWState, sw2d_rhs,
-                                          apply_filter, sponge_relax)
-        from blitzdg_tpu.parallel.blocked_shard import (
-            build_sharded_blocked, initial_send_buffer,
-            make_sharded_blocked_step_fused, pack_local, unpack_local)
-        from blitzdg_tpu.timestepping import ssprk2_step
-        from jax.sharding import Mesh, PartitionSpec as P
-
-        NDEV = 8
-        mesh0 = box_triangles(8, 8)
-        mesh2d, _, _ = partition_mesh(mesh0, NDEV)
-        ctx = build_triangle_context(1, mesh2d, filter_cutoff=0.9,
-                                     filter_order=1)
-        rng = np.random.default_rng(5)
-        H = 10.0 + 2.0 * ctx.x + jnp.asarray(
-            rng.uniform(0.0, 1.0, size=(ctx.k_elem, 1)))
-        Hx, Hy = ctx.grad(H)
-        sponge = jnp.asarray(
-            rng.uniform(0.0, 0.2, size=(ctx.k_elem, ctx.n_p)))
-        phys = SWPhysics(g=9.81, cd=2.5e-3, f_cor=1e-4, H=H, Hx=Hx, Hy=Hy,
-                         sponge=sponge)
-        sb = build_sharded_blocked(ctx, phys, NDEV, dtype=jnp.float64)
-        assert sb.meta.wb and sb.meta.has_bathy and sb.meta.has_sponge
-        meta = sb.meta
-        DT, NSTEP = 5e-4, 4
-
-        eta = 0.2 * jnp.exp(-8.0 * (ctx.x**2 + ctx.y**2))
-        state = SWState(h=H + eta, hu=0.05 * eta, hv=jnp.zeros_like(eta))
-        ref = state
-        post = lambda f: apply_filter(ctx, f)
-        for i in range(NSTEP):
-            ref = ssprk2_step(lambda s, t: sw2d_rhs(ctx, s, t, phys),
-                              ref, i * DT, DT, post_stage=post)
-            ref = sponge_relax(ref, phys, DT)
-
-        step = make_sharded_blocked_step_fused(sb, DT, interpret=True)
-        el_mesh = Mesh(np.array(jax.devices()[:NDEV]), ("element",))
-        k_loc = sb.k_loc
-        packed = tuple(jnp.concatenate([
-            pack_local(meta, f[s * k_loc:(s + 1) * k_loc])
-            for s in range(NDEV)], axis=0) for f in state)
-        op_specs = jax.tree.map(
-            lambda a: P("element", *([None] * (a.ndim - 1))), sb.ops)
-        st_spec = P("element", None, None, None)
-
-        def roll(ops_l, *pk):
-            sb0 = initial_send_buffer(sb, ops_l, tuple(pk))
-
-            def body(carry, _):
-                return step(ops_l, carry, 0.0), None
-
-            (out, _), _ = jax.lax.scan(body, (tuple(pk), sb0), None,
-                                       length=NSTEP)
-            return out
-
-        fn = jax.jit(jax.shard_map(
-            roll, mesh=el_mesh,
-            in_specs=(op_specs,) + (st_spec,) * 3,
-            out_specs=(st_spec,) * 3,
-            check_vma=False))
-        out = fn(sb.ops, *packed)
-        for got_packed, want in zip(out, ref):
-            got = jnp.concatenate([
-                unpack_local(meta, got_packed[s:s + 1])
-                for s in range(NDEV)], axis=0)
-            np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                       atol=1e-12)
-
-    def test_fused_sharded_blocked_tidal_matches_single(self):
-        """Tidal BC_OUT forcing through the sharded blocked kernel: the
-        stage time is delivered DYNAMICALLY via an SMEM scalar (the
-        in-kernel cos(omega t) ramp needs it), and the rollout must match
-        the single-device XLA path with the same forcing."""
-        from blitzdg_tpu.context import BC_OUT
-        from blitzdg_tpu.ops.sw2d import (SWPhysics, SWState, sw2d_rhs,
-                                          apply_filter)
-        from blitzdg_tpu.parallel.blocked_shard import (
-            build_sharded_blocked, initial_send_buffer,
-            make_sharded_blocked_step_fused, pack_local, unpack_local)
-        from blitzdg_tpu.timestepping import ssprk2_step
-        from jax.sharding import Mesh, PartitionSpec as P
-
-        NDEV = 8
-        mesh0 = box_triangles(8, 8, xlim=(0.0, 1.0), ylim=(0.0, 1.0))
-        bc = np.asarray(mesh0.bc_type).copy()
-        for k in range(mesh0.num_elements):
-            for f in range(3):
-                a, b = mesh0.etov[k, f], mesh0.etov[k, (f + 1) % 3]
-                mx = 0.5 * (mesh0.verts[a, 0] + mesh0.verts[b, 0])
-                if bc[k, f] > 0 and abs(mx - 1.0) < 1e-12:
-                    bc[k, f] = BC_OUT
-        mesh0.set_bc_type(bc)
-        mesh2d, _, _ = partition_mesh(mesh0, NDEV)
-        ctx = build_triangle_context(1, mesh2d, filter_cutoff=0.9,
-                                     filter_order=1)
-        phys = SWPhysics(g=9.81)
-        TIDE = (10.4, 0.3, 2.0, 0.01)
-        sb = build_sharded_blocked(ctx, phys, NDEV, dtype=jnp.float64,
-                                   tidal=TIDE)
-        assert sb.meta.tidal is not None
-        meta = sb.meta
-        DT, NSTEP, T0 = 5e-4, 4, 0.02
-
-        def forcing(t):
-            h0, amp, om, tau = TIDE
-            return h0 + amp * jnp.cos(om * t) * jnp.minimum(t / tau, 1.0)
-
-        eta = 0.2 * jnp.exp(-8.0 * ((ctx.x - 0.5) ** 2 + (ctx.y - 0.5) ** 2))
-        state = SWState(h=10.0 + eta, hu=0.05 * eta, hv=jnp.zeros_like(eta))
-        ref, t = state, T0
-        post = lambda f: apply_filter(ctx, f)
-        for _ in range(NSTEP):
-            ref = ssprk2_step(
-                lambda s, tt: sw2d_rhs(ctx, s, tt, phys,
-                                       tidal_forcing=forcing),
-                ref, t, DT, post_stage=post)
-            t += DT
-
-        step = make_sharded_blocked_step_fused(sb, DT, interpret=True)
-        el_mesh = Mesh(np.array(jax.devices()[:NDEV]), ("element",))
-        k_loc = sb.k_loc
-        packed = tuple(jnp.concatenate([
-            pack_local(meta, f[s * k_loc:(s + 1) * k_loc])
-            for s in range(NDEV)], axis=0) for f in state)
-        op_specs = jax.tree.map(
-            lambda a: P("element", *([None] * (a.ndim - 1))), sb.ops)
-        st_spec = P("element", None, None, None)
-
-        def roll(ops_l, *pk):
-            sb0 = initial_send_buffer(sb, ops_l, tuple(pk))
-
-            def body(carry, _):
-                st, tt = carry
-                return (step(ops_l, st, tt), tt + DT), None
-
-            ((out, _), _), _ = jax.lax.scan(
-                body, ((tuple(pk), sb0), T0), None, length=NSTEP)
-            return out
-
-        fn = jax.jit(jax.shard_map(
-            roll, mesh=el_mesh,
-            in_specs=(op_specs,) + (st_spec,) * 3,
-            out_specs=(st_spec,) * 3,
-            check_vma=False))
-        out = fn(sb.ops, *packed)
-        for got_packed, want in zip(out, ref):
-            got = jnp.concatenate([
-                unpack_local(meta, got_packed[s:s + 1])
-                for s in range(NDEV)], axis=0)
-            np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                       atol=1e-12)
-
-    def test_fused_sharded_blocked_wetdry_matches_single(self):
-        """Wetting/drying through the sharded blocked kernel: per-stage
-        Zhang-Shu limiting inside the stage kernel (emitted traces are
-        post-limit) must reproduce the XLA midpoint wet/dry stepper."""
-        from blitzdg_tpu.ops.sw2d import SWPhysics, SWState
-        from blitzdg_tpu.ops.sw2d_wetdry import ssprk2_step_wetdry
-        from blitzdg_tpu.parallel.blocked_shard import (
-            build_sharded_blocked, initial_send_buffer,
-            make_sharded_blocked_step_fused, pack_local, unpack_local)
-        from jax.sharding import Mesh, PartitionSpec as P
-
-        NDEV = 8
-        H_FLOOR = 1e-3
-        mesh0 = box_triangles(8, 8, xlim=(0.0, 1.0), ylim=(0.0, 1.0))
-        mesh2d, _, _ = partition_mesh(mesh0, NDEV)
-        ctx = build_triangle_context(1, mesh2d, filter_cutoff=0.9,
-                                     filter_order=1)
-        H = 1.0 - 1.5 * ctx.x  # beach: dry land for x > 2/3
-        Hx = -1.5 * jnp.ones_like(H)
-        phys = SWPhysics(g=9.81, cd=1e-3, H=H, Hx=Hx,
-                         Hy=jnp.zeros_like(H), well_balanced=False)
-        sb = build_sharded_blocked(ctx, phys, NDEV, dtype=jnp.float64,
-                                   wetdry=True, h_floor=H_FLOOR)
-        assert sb.meta.wetdry
-        meta = sb.meta
-        DT, NSTEP = 2e-4, 6
-
-        h0 = jnp.maximum(H, H_FLOOR)
-        h0 = h0 + 0.1 * jnp.exp(-8.0 * ((ctx.x - 0.3) ** 2
-                                        + (ctx.y - 0.5) ** 2))
-        state = SWState(h=h0, hu=jnp.zeros_like(h0), hv=jnp.zeros_like(h0))
-        ref = state
-        for _ in range(NSTEP):
-            ref = ssprk2_step_wetdry(ctx, ref, 0.0, DT, phys, H_FLOOR,
-                                     scheme="midpoint")
-
-        step = make_sharded_blocked_step_fused(sb, DT, interpret=True)
-        el_mesh = Mesh(np.array(jax.devices()[:NDEV]), ("element",))
-        k_loc = sb.k_loc
-        packed = tuple(jnp.concatenate([
-            pack_local(meta, f[s * k_loc:(s + 1) * k_loc])
-            for s in range(NDEV)], axis=0) for f in state)
-        op_specs = jax.tree.map(
-            lambda a: P("element", *([None] * (a.ndim - 1))), sb.ops)
-        st_spec = P("element", None, None, None)
-
-        def roll(ops_l, *pk):
-            sb0 = initial_send_buffer(sb, ops_l, tuple(pk))
-
-            def body(carry, _):
-                return step(ops_l, carry, 0.0), None
-
-            (out, _), _ = jax.lax.scan(body, (tuple(pk), sb0), None,
-                                       length=NSTEP)
-            return out
-
-        fn = jax.jit(jax.shard_map(
-            roll, mesh=el_mesh,
-            in_specs=(op_specs,) + (st_spec,) * 3,
-            out_specs=(st_spec,) * 3,
-            check_vma=False))
-        out = fn(sb.ops, *packed)
-        for got_packed, want in zip(out, ref):
-            got = jnp.concatenate([
-                unpack_local(meta, got_packed[s:s + 1])
-                for s in range(NDEV)], axis=0)
-            np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                       atol=1e-12)
-
-    def test_rdma_sharded_blocked_matches_single_device(self):
-        """ENDGAME prototype (VERDICT r4 #2): one kernel per step with the
-        inter-stage halo exchanged by IN-KERNEL remote DMA
-        (pltpu.make_async_remote_copy + send/recv semaphores). The TPU
-        interpret mode simulates the remote DMAs on the 8-device CPU
-        mesh; the rollout must match the single-device XLA path — with
-        the interpreter's RACE DETECTION on, so an unsynchronized
-        remote write would fail the test, not just corrupt it."""
-        from jax.experimental.pallas import tpu as pltpu
-
-        from blitzdg_tpu.ops.sw2d import (SWPhysics, SWState, sw2d_rhs,
-                                          apply_filter)
-        from blitzdg_tpu.parallel.blocked_shard import (
-            build_sharded_blocked, initial_send_buffer,
-            make_sharded_blocked_step_rdma, pack_local, unpack_local)
-        from blitzdg_tpu.timestepping import ssprk2_step
-        from jax.sharding import Mesh, PartitionSpec as P
-
-        NDEV = 8
-        mesh0 = box_triangles(8, 8)
-        mesh2d, _, _ = partition_mesh(mesh0, NDEV)
-        ctx = build_triangle_context(1, mesh2d, filter_cutoff=0.9,
-                                     filter_order=1)
-        phys = SWPhysics(g=9.81)
-        sb = build_sharded_blocked(ctx, phys, NDEV, dtype=jnp.float64)
-        meta = sb.meta
-        DT, NSTEP = 5e-4, 3
-
-        eta = jnp.exp(-8.0 * (ctx.x**2 + ctx.y**2))
-        state = SWState(h=10.0 + eta, hu=0.1 * eta, hv=jnp.zeros_like(eta))
-        ref = state
-        post = lambda f: apply_filter(ctx, f)
-        for i in range(NSTEP):
-            ref = ssprk2_step(lambda s, t: sw2d_rhs(ctx, s, t, phys),
-                              ref, i * DT, DT, post_stage=post)
-
-        step = make_sharded_blocked_step_rdma(
-            sb, DT,
-            interpret=pltpu.InterpretParams(detect_races=True))
-        el_mesh = Mesh(np.array(jax.devices()[:NDEV]), ("element",))
-        k_loc = sb.k_loc
-        packed = tuple(jnp.concatenate([
-            pack_local(meta, f[s * k_loc:(s + 1) * k_loc])
-            for s in range(NDEV)], axis=0) for f in state)
-        op_specs = jax.tree.map(
-            lambda a: P("element", *([None] * (a.ndim - 1))), sb.ops)
-        st_spec = P("element", None, None, None)
-
-        def roll(ops_l, *pk):
-            sb0 = initial_send_buffer(sb, ops_l, tuple(pk))
-
-            def body(carry, _):
-                return step(ops_l, carry, 0.0), None
-
-            (out, _), _ = jax.lax.scan(body, (tuple(pk), sb0), None,
-                                       length=NSTEP)
-            return out
-
-        fn = jax.jit(jax.shard_map(
-            roll, mesh=el_mesh,
-            in_specs=(op_specs,) + (st_spec,) * 3,
-            out_specs=(st_spec,) * 3,
-            check_vma=False))
-        out = fn(sb.ops, *packed)
-        for got_packed, want in zip(out, ref):
-            got = jnp.concatenate([
-                unpack_local(meta, got_packed[s:s + 1])
-                for s in range(NDEV)], axis=0)
-            np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                       atol=1e-12)
-
-    def test_diff_sharded_blocked_grad_matches_xla(self):
-        """Multi-chip MPC adjoint: jax.grad through the SHARDED blocked
-        rollout (custom-VJP stage kernels with in-kernel jax.vjp backward
-        + natively-transposed lean exchange) must match jax.grad of the
-        single-device XLA rollout w.r.t. the initial state."""
-        from blitzdg_tpu.ops.sw2d import SWPhysics, SWState, sw2d_rhs, apply_filter
-        from blitzdg_tpu.parallel.blocked_shard import (
-            build_sharded_blocked, initial_send_buffer,
-            make_sharded_blocked_step_diff, pack_local, unpack_local)
-        from blitzdg_tpu.timestepping import ssprk2_step
-        from jax.sharding import Mesh, PartitionSpec as P
-
-        NDEV = 8
-        mesh0 = box_triangles(8, 8)
-        mesh2d, _, _ = partition_mesh(mesh0, NDEV)
-        ctx = build_triangle_context(1, mesh2d, filter_cutoff=0.9,
-                                     filter_order=1)
-        phys = SWPhysics(g=9.81)
-        sb = build_sharded_blocked(ctx, phys, NDEV, dtype=jnp.float64)
-        meta = sb.meta
-        DT, NSTEP = 5e-4, 3
-        k_loc = sb.k_loc
-
-        eta = jnp.exp(-8.0 * (ctx.x**2 + ctx.y**2))
-        h0 = 10.0 + eta
-        tgt = 10.0 + 0.5 * eta
-
-        # --- XLA single-device gradient ---
-        def xla_loss(h_init):
-            s = SWState(h=h_init, hu=0.1 * eta, hv=jnp.zeros_like(eta))
-            post = lambda f: apply_filter(ctx, f)
-            for i in range(NSTEP):
-                s = ssprk2_step(lambda ss, t: sw2d_rhs(ctx, ss, t, phys),
-                                s, i * DT, DT, post_stage=post)
-            return jnp.sum((s.h - tgt) ** 2) + 0.1 * jnp.sum(s.hu**2)
-
-        g_ref = jax.grad(xla_loss)(h0)
-
-        # --- sharded gradient ---
-        step = make_sharded_blocked_step_diff(sb, DT, interpret=True)
-        el_mesh = Mesh(np.array(jax.devices()[:NDEV]), ("element",))
-        op_specs = jax.tree.map(
-            lambda a: P("element", *([None] * (a.ndim - 1))), sb.ops)
-        st_spec = P("element", None, None, None)
-        vm = sb.ops.vmask[0][None]  # (1, p, NP, M)
-
-        hu0 = 0.1 * eta
-        hv0 = jnp.zeros_like(eta)
-        packed_fix = tuple(jnp.concatenate([
-            pack_local(meta, f[s * k_loc:(s + 1) * k_loc])
-            for s in range(NDEV)], axis=0) for f in (hu0, hv0))
-        tgt_pk = jnp.concatenate([
-            pack_local(meta, tgt[s * k_loc:(s + 1) * k_loc])
-            for s in range(NDEV)], axis=0)
-
-        def sh_loss_local(ops_l, hpk, hupk, hvpk, tgt_l):
-            pk = (hpk, hupk, hvpk)
-            sb0 = initial_send_buffer(sb, ops_l, pk)
-
-            def body(carry, _):
-                return step(ops_l, carry, 0.0), None
-
-            ((out, _), _) = jax.lax.scan(body, (pk, sb0), None,
-                                         length=NSTEP)[0], None
-            h_end, hu_end, _ = out
-            loc = (jnp.sum(vm * (h_end - tgt_l) ** 2)
-                   + 0.1 * jnp.sum(vm * hu_end**2))
-            return jax.lax.psum(loc, "element")
-
-        def total(hpk):
-            fn = jax.shard_map(
-                sh_loss_local, mesh=el_mesh,
-                in_specs=(op_specs,) + (st_spec,) * 3
-                + (st_spec,),
-                out_specs=P(),
-                check_vma=False)
-            return fn(sb.ops, hpk, packed_fix[0], packed_fix[1],
-                      tgt_pk)
-
-        h_pk = jnp.concatenate([
-            pack_local(meta, h0[s * k_loc:(s + 1) * k_loc])
-            for s in range(NDEV)], axis=0)
-        v0 = float(total(h_pk))
-        v_ref = float(xla_loss(h0))
-        np.testing.assert_allclose(v0, v_ref, rtol=1e-12)
-
-        g_pk = jax.grad(total)(h_pk)
-        g_sh = jnp.concatenate([
-            unpack_local(meta, g_pk[s:s + 1]) for s in range(NDEV)], axis=0)
-        np.testing.assert_allclose(np.asarray(g_sh), np.asarray(g_ref),
-                                   atol=1e-10)
-
-    def test_diff_sharded_blocked_control_grad_matches_xla(self):
-        """Multi-chip MPC over CONTROLS: gradients w.r.t. a per-step
-        control sequence (linear forcing injectors in the sharded stage
-        kernels, control cotangents from the in-kernel pullback) must
-        match the single-device XLA gradient."""
-        from blitzdg_tpu.ops.sw2d import SWPhysics, SWState, sw2d_rhs, apply_filter
-        from blitzdg_tpu.parallel.blocked_shard import (
-            build_sharded_blocked, initial_send_buffer,
-            make_sharded_blocked_step_diff, pack_local)
-        from blitzdg_tpu.timestepping import ssprk2_step
-        from jax.sharding import Mesh, PartitionSpec as P
-
-        NDEV = 8
-        mesh0 = box_triangles(8, 8)
-        mesh2d, _, _ = partition_mesh(mesh0, NDEV)
-        ctx = build_triangle_context(1, mesh2d, filter_cutoff=0.9,
-                                     filter_order=1)
-        phys = SWPhysics(g=9.81)
-        bump = np.exp(-8.0 * (np.asarray(ctx.x) ** 2
-                              + np.asarray(ctx.y) ** 2))
-        BU = np.stack([bump, 0 * bump])
-        BV = np.stack([0 * bump, bump])
-        sb = build_sharded_blocked(ctx, phys, NDEV, dtype=jnp.float64,
-                                   forcing_bu=BU, forcing_bv=BV)
-        assert sb.meta.n_ctrl == 2
-        meta = sb.meta
-        DT, NSTEP = 5e-4, 3
-        k_loc = sb.k_loc
-
-        eta = jnp.exp(-8.0 * (ctx.x**2 + ctx.y**2))
-        h0 = 10.0 + eta
-        state0 = SWState(h=h0, hu=jnp.zeros_like(h0), hv=jnp.zeros_like(h0))
-        tgt = 10.0 + 0.5 * eta
-        ctrls0 = 0.3 * jnp.asarray(
-            np.random.default_rng(7).standard_normal((NSTEP, 2)))
-        bmp = jnp.asarray(bump)
-
-        def xla_loss(cs):
-            s = state0
-            post = lambda f: apply_filter(ctx, f)
-            for i in range(NSTEP):
-                def rhs(ss, tt, c=cs[i]):
-                    r = sw2d_rhs(ctx, ss, tt, phys)
-                    return SWState(h=r.h, hu=r.hu + c[0] * bmp,
-                                   hv=r.hv + c[1] * bmp)
-
-                s = ssprk2_step(rhs, s, i * DT, DT, post_stage=post)
-            return jnp.sum((s.h - tgt) ** 2)
-
-        g_ref = jax.grad(xla_loss)(ctrls0)
-
-        step = make_sharded_blocked_step_diff(sb, DT, interpret=True)
-        el_mesh = Mesh(np.array(jax.devices()[:NDEV]), ("element",))
-        packed = tuple(jnp.concatenate([
-            pack_local(meta, f[s * k_loc:(s + 1) * k_loc])
-            for s in range(NDEV)], axis=0) for f in state0)
-        tgt_pk = jnp.concatenate([
-            pack_local(meta, tgt[s * k_loc:(s + 1) * k_loc])
-            for s in range(NDEV)], axis=0)
-        vm = sb.ops.vmask[0][None]
-        op_specs = jax.tree.map(
-            lambda a: P("element", *([None] * (a.ndim - 1))), sb.ops)
-        st_spec = P("element", None, None, None)
-
-        def loss_local(ops_l, cs, h_l, hu_l, hv_l, tgt_l):
-            pk = (h_l, hu_l, hv_l)
-            sb0 = initial_send_buffer(sb, ops_l, pk)
-
-            def body(carry, c):
-                return step(ops_l, carry, 0.0, ctrl=c), None
-
-            ((out, _), _) = jax.lax.scan(body, (pk, sb0), cs)[0], None
-            return jax.lax.psum(jnp.sum(vm * (out[0] - tgt_l) ** 2),
-                                "element")
-
-        def total(cs):
-            fn = jax.shard_map(
-                loss_local, mesh=el_mesh,
-                in_specs=(op_specs, P()) + (st_spec,) * 4,
-                out_specs=P(), check_vma=False)
-            return fn(sb.ops, cs, *packed, tgt_pk)
-
-        v_sh = float(total(ctrls0))
-        v_ref = float(xla_loss(ctrls0))
-        np.testing.assert_allclose(v_sh, v_ref, rtol=1e-12)
-
-        g_sh = jax.grad(total)(ctrls0)
-        np.testing.assert_allclose(np.asarray(g_sh), np.asarray(g_ref),
-                                   rtol=1e-9, atol=1e-12)

@@ -10,16 +10,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from blitzdg_tpu.mesh import box_triangles
-from blitzdg_tpu.ops.poisson import (
+from blitzdg_jax.mesh import box_triangles
+from blitzdg_jax.ops.poisson import (
     apply_mass,
     assemble_poisson2d,
     poisson1d_op,
     poisson2d_op,
 )
-from blitzdg_tpu.solvers.krylov import CONV_SUCCESS, cg, gmres
-from blitzdg_tpu.specgrid.nodes1d import build_nodes1d
-from blitzdg_tpu.specgrid.triangle import build_triangle_context
+from blitzdg_jax.solvers.krylov import CONV_SUCCESS, cg, gmres
+from blitzdg_jax.specgrid.nodes1d import build_nodes1d
+from blitzdg_jax.specgrid.triangle import build_triangle_context
 
 
 class TestKrylov:
@@ -190,7 +190,7 @@ class TestShardedElliptic:
 
     @pytest.fixture(scope="class")
     def sharded_problem(self):
-        from blitzdg_tpu.parallel import (
+        from blitzdg_jax.parallel import (
             build_halo_plan,
             halo_tables,
             make_device_mesh,
@@ -209,13 +209,13 @@ class TestShardedElliptic:
         return ctx, plan, tables, devmesh, tau, uex, f
 
     def _ctx_specs(self, ctx):
-        from blitzdg_tpu.parallel import context_shard_specs
+        from blitzdg_jax.parallel import context_shard_specs
 
         return context_shard_specs(ctx)
 
     def test_sharded_cg_matches_single(self, sharded_problem):
         from jax.sharding import PartitionSpec as P
-        from blitzdg_tpu.parallel import halo_poisson2d_op
+        from blitzdg_jax.parallel import halo_poisson2d_op
 
         ctx, plan, tables, devmesh, tau, uex, f = sharded_problem
         b = -apply_mass(ctx, f)
@@ -259,7 +259,7 @@ class TestShardedElliptic:
 
     def test_sharded_gmres_matches_single(self, sharded_problem):
         from jax.sharding import PartitionSpec as P
-        from blitzdg_tpu.parallel import halo_poisson2d_op
+        from blitzdg_jax.parallel import halo_poisson2d_op
 
         ctx, plan, tables, devmesh, tau, uex, f = sharded_problem
 
@@ -305,7 +305,7 @@ class TestBlockJacobi:
         """Colored probing of the assembled operator (applied matrix-free)
         must reproduce its exact diagonal blocks — validates the coloring
         against ground truth."""
-        from blitzdg_tpu.solvers import (
+        from blitzdg_jax.solvers import (
             block_diagonal_blocks,
             probe_diagonal_blocks,
         )
@@ -329,7 +329,7 @@ class TestBlockJacobi:
         path = "/root/reference/input/box.msh"
         if not os.path.exists(path):
             pytest.skip("reference box.msh unavailable")
-        from blitzdg_tpu.mesh.gmsh import read_gmsh
+        from blitzdg_jax.mesh.gmsh import read_gmsh
 
         mesh = read_gmsh(path)
         ctx = build_triangle_context(2, mesh)
@@ -361,7 +361,7 @@ class TestBlockJacobi:
         strictly reduce CG iterations. (On the UNsymmetrized strong-form
         operator the spectrum is already benign and block-Jacobi does not
         pay — measured, not assumed.)"""
-        from blitzdg_tpu.solvers import block_jacobi_from_matvec
+        from blitzdg_jax.solvers import block_jacobi_from_matvec
 
         ctx, uex, f = box1046
         b = -apply_mass(ctx, f).reshape(-1)
@@ -390,7 +390,7 @@ class TestBlockJacobi:
         low-frequency modes block-Jacobi cannot see."""
         from jax.experimental import sparse as jsparse
 
-        from blitzdg_tpu.solvers import (block_jacobi_from_assembled,
+        from blitzdg_jax.solvers import (block_jacobi_from_assembled,
                                          two_level_from_assembled)
 
         ctx, uex, f = box1046
@@ -426,7 +426,7 @@ class TestBlockJacobi:
         import scipy.sparse.linalg as spla
         from jax.experimental import sparse as jsparse
 
-        from blitzdg_tpu.solvers import block_jacobi_from_assembled
+        from blitzdg_jax.solvers import block_jacobi_from_assembled
 
         ctx, uex, f = box1046
         OP, MM = assemble_poisson2d(ctx)
@@ -455,7 +455,7 @@ class TestGMRESFlags:
     """Extended ConvFlag taxonomy (reference GMRESSolver.hpp:64-75)."""
 
     def test_gmres_stagnation_flag(self):
-        from blitzdg_tpu.solvers.krylov import CONV_STAGNATION
+        from blitzdg_jax.solvers.krylov import CONV_STAGNATION
 
         # singular consistent-ish system where the update stalls: with a
         # huge stg_tol any nonzero first cycle is "stagnant" on cycle 2
@@ -467,7 +467,7 @@ class TestGMRESFlags:
         assert int(res.flag) == CONV_STAGNATION
 
     def test_gmres_diverged_flag(self):
-        from blitzdg_tpu.solvers.krylov import CONV_DIVERGED
+        from blitzdg_jax.solvers.krylov import CONV_DIVERGED
 
         # operator whose GMRES(1) residual grows: use div_tol < 1 so any
         # non-decreasing residual trips the divergence check
@@ -485,7 +485,7 @@ class TestGMRESFlags:
         the CG recurrence residual drops below tol while the true residual
         b - A x stalls at the roundoff floor — the exit check must report
         the TRUE relres and flag the discrepancy."""
-        from blitzdg_tpu.solvers.krylov import CONV_TRUE_RNRM
+        from blitzdg_jax.solvers.krylov import CONV_TRUE_RNRM
 
         rng = np.random.default_rng(7)
         n = 64
@@ -508,7 +508,7 @@ class TestGMRESFlags:
         |g[j+1]| claims convergence inside the cycle, the per-cycle true
         residual disagrees, and after maxiter retries the exit flags
         true_rnrm rather than a generic maxits."""
-        from blitzdg_tpu.solvers.krylov import CONV_TRUE_RNRM
+        from blitzdg_jax.solvers.krylov import CONV_TRUE_RNRM
 
         rng = np.random.default_rng(7)
         n = 64
@@ -540,8 +540,8 @@ class TestAssembledQuads:
 
     @pytest.fixture(scope="class")
     def quad_ctx(self):
-        from blitzdg_tpu.mesh import box_quads
-        from blitzdg_tpu.specgrid.quad import build_quad_context
+        from blitzdg_jax.mesh import box_quads
+        from blitzdg_jax.specgrid.quad import build_quad_context
 
         return build_quad_context(3, box_quads(5, 5))
 
@@ -574,7 +574,7 @@ class TestAssembledQuads:
         at the solution level, exactly as for triangles)."""
         import scipy.sparse.linalg as spla
 
-        from blitzdg_tpu.ops.poisson import apply_mass
+        from blitzdg_jax.ops.poisson import apply_mass
 
         ctx = quad_ctx
         OP, MM = assemble_poisson2d(ctx)
@@ -604,10 +604,10 @@ class TestCurvedSIP:
 
     @pytest.fixture(scope="class")
     def disk(self):
-        from blitzdg_tpu.mesh.curved import (
+        from blitzdg_jax.mesh.curved import (
             circle_projection, gordon_hall_deform, snap_boundary_vertices)
-        from blitzdg_tpu.mesh.generators import disk_triangles
-        from blitzdg_tpu.specgrid.cubature import (
+        from blitzdg_jax.mesh.generators import disk_triangles
+        from blitzdg_jax.specgrid.cubature import (
             build_cubature_context, build_gauss_face_context)
 
         N = 3
@@ -625,7 +625,7 @@ class TestCurvedSIP:
     def test_assembled_symmetric_and_matches_matrix_free(self, disk):
         """OP is symmetric; the matrix-free device SIP op applies the SAME
         operator to machine precision (operator-level cross-check)."""
-        from blitzdg_tpu.ops.poisson import (
+        from blitzdg_jax.ops.poisson import (
             assemble_poisson2d_curved, poisson2d_curved_sip_op)
 
         ctx, cub, gauss = disk
@@ -647,7 +647,7 @@ class TestCurvedSIP:
         the exact solution at curved-geometry discretization accuracy."""
         import scipy.sparse.linalg as spla
 
-        from blitzdg_tpu.ops.poisson import (
+        from blitzdg_jax.ops.poisson import (
             apply_mass_curved, assemble_poisson2d_curved,
             poisson2d_curved_sip_op)
 
@@ -677,7 +677,7 @@ class TestCurvedSIP:
     def test_sip_vs_ldg_solutions_agree(self, disk):
         """The (distinct) LDG matrix-free curved discretization solves the
         same problem to the same solution within discretization accuracy."""
-        from blitzdg_tpu.ops.poisson import (
+        from blitzdg_jax.ops.poisson import (
             apply_mass_curved, poisson2d_curved_op, poisson2d_curved_sip_op)
 
         ctx, cub, gauss = disk
@@ -699,8 +699,8 @@ class TestCurvedSIP:
         """pyblitzdg curved ctor parity (pyblitzdg.cpp:194-199): passing
         gauss+cubature contexts selects the curved assembly and exposes
         (nnz,3) triplets."""
-        from blitzdg_tpu.compat import Poisson2DSparseMatrix
-        from blitzdg_tpu.ops.poisson import assemble_poisson2d_curved
+        from blitzdg_jax.compat import Poisson2DSparseMatrix
+        from blitzdg_jax.ops.poisson import assemble_poisson2d_curved
 
         ctx, cub, gauss = disk
 

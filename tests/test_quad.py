@@ -4,15 +4,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from blitzdg_tpu.mesh import box_quads
-from blitzdg_tpu.ops.sw2d import SWPhysics, SWState, sw2d_rhs
-from blitzdg_tpu.specgrid.quad import (
+from blitzdg_jax.mesh import box_quads
+from blitzdg_jax.ops.sw2d import SWPhysics, SWState, sw2d_rhs
+from blitzdg_jax.specgrid.quad import (
     build_quad_context,
     dmatrices_quad,
     quad_nodes,
     vandermonde_quad,
 )
-from blitzdg_tpu.timestepping import ssprk2_step
+from blitzdg_jax.timestepping import ssprk2_step
 
 
 class TestQuadOperators:

@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import scipy.sparse.linalg as spla
 
-from blitzdg_tpu.mesh import box_triangles
-from blitzdg_tpu.ops.sem import (
+from blitzdg_jax.mesh import box_triangles
+from blitzdg_jax.ops.sem import (
     assemble_sem_poisson,
     sem_boundary_nodes,
     sem_load_vector,
@@ -12,8 +12,8 @@ from blitzdg_tpu.ops.sem import (
     sem_poisson_op,
     sem_scatter,
 )
-from blitzdg_tpu.solvers.krylov import CONV_SUCCESS, cg
-from blitzdg_tpu.specgrid.triangle import build_triangle_context
+from blitzdg_jax.solvers.krylov import CONV_SUCCESS, cg
+from blitzdg_jax.specgrid.triangle import build_triangle_context
 
 
 def setup_ctx():

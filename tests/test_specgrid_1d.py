@@ -6,14 +6,14 @@ src/test/JacobiBuildersTests.cpp:34-199, src/test/Nodes1DProvisionerTests.cpp:45
 import numpy as np
 import pytest
 
-from blitzdg_tpu.specgrid.jacobi import (
+from blitzdg_jax.specgrid.jacobi import (
     gauss_lobatto_points,
     gauss_quadrature,
     grad_jacobi_p,
     jacobi_p,
 )
-from blitzdg_tpu.specgrid.nodes1d import build_nodes1d
-from blitzdg_tpu.specgrid.vandermonde import dmatrix_1d, vandermonde_1d
+from blitzdg_jax.specgrid.nodes1d import build_nodes1d
+from blitzdg_jax.specgrid.vandermonde import dmatrix_1d, vandermonde_1d
 
 
 class TestJacobi:

@@ -5,16 +5,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from blitzdg_tpu.mesh import box_triangles
-from blitzdg_tpu.ops.sw2d import (
+from blitzdg_jax.mesh import box_triangles
+from blitzdg_jax.ops.sw2d import (
     SWPhysics,
     SWState,
     apply_filter,
     sw2d_rhs,
     sw2d_timestep,
 )
-from blitzdg_tpu.specgrid.triangle import build_triangle_context
-from blitzdg_tpu.timestepping import ssprk2_step
+from blitzdg_jax.specgrid.triangle import build_triangle_context
+from blitzdg_jax.timestepping import ssprk2_step
 
 
 def make_problem(N=1, cells=4):
@@ -219,7 +219,7 @@ class TestOracleParity:
 
         if not os.path.exists(self.MESH):
             pytest.skip("reference mesh unavailable")
-        from blitzdg_tpu.mesh.gmsh import read_gmsh
+        from blitzdg_jax.mesh.gmsh import read_gmsh
 
         mesh = read_gmsh(self.MESH)
         ctx = build_triangle_context(
@@ -277,7 +277,7 @@ def test_dense_path_full_coastal_matches_sw2d_rhs():
     NotImplementedError guard is GONE) — well-balanced star fluxes, tidal
     BC_OUT forcing, bed-slope/drag/Coriolis — and must match sw2d_rhs
     exactly for the same SWPhysics."""
-    from blitzdg_tpu.ops.sw2d_dense import build_dense_trace_ops, sw2d_rhs_dense
+    from blitzdg_jax.ops.sw2d_dense import build_dense_trace_ops, sw2d_rhs_dense
 
     ctx, _, state = make_problem(N=2)
     rng = np.random.default_rng(3)

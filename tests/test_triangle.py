@@ -7,8 +7,8 @@ spectral-element math.
 import numpy as np
 import pytest
 
-from blitzdg_tpu.mesh import box_triangles, read_gmsh
-from blitzdg_tpu.specgrid.triangle import (
+from blitzdg_jax.mesh import box_triangles, read_gmsh
+from blitzdg_jax.specgrid.triangle import (
     build_triangle_context,
     dmatrices_2d,
     grad_simplex_2d_p,
@@ -212,13 +212,12 @@ class TestReferenceMeshes:
 
 
 def test_structured_face_trace_matches_flat_gather():
-    """The face-granular '+'-trace (row gather + lane flip — the TPU fast
-    path) must be bitwise identical to the flat node-level mapP gather,
+    """The face-granular '+'-trace (row gather + node-order flip) must be bitwise identical to the flat node-level mapP gather,
     including on boundary (self) faces; both triangles and quads."""
     import jax.numpy as jnp
 
-    from blitzdg_tpu.mesh import box_quads
-    from blitzdg_tpu.specgrid.quad import build_quad_context
+    from blitzdg_jax.mesh import box_quads
+    from blitzdg_jax.specgrid.quad import build_quad_context
 
     for ctx in (
         build_triangle_context(3, box_triangles(4, 5)),
@@ -247,7 +246,7 @@ def test_interp_matrix_2d_exact_for_polynomials():
     """Interpolation to arbitrary (r,s) is exact for polynomials of total
     degree <= N (reference analog: computeInterpMatrix,
     src/TriangleNodesProvisioner.cpp:1140-1152)."""
-    from blitzdg_tpu.specgrid.triangle import (
+    from blitzdg_jax.specgrid.triangle import (
         interp_matrix_2d,
         triangle_nodes,
         vandermonde_2d,

@@ -2,10 +2,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from blitzdg_tpu.context import BC_OUT
-from blitzdg_tpu.mesh import box_triangles
-from blitzdg_tpu.specgrid.triangle import build_triangle_context
-from blitzdg_tpu.utils import (
+from blitzdg_jax.context import BC_OUT
+from blitzdg_jax.mesh import box_triangles
+from blitzdg_jax.specgrid.triangle import build_triangle_context
+from blitzdg_jax.utils import (
     StepTimer,
     build_sponge_coefficient,
     checked_update,

@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from blitzdg_tpu.mesh import box_triangles
-from blitzdg_tpu.ops.sw2d import SWPhysics, SWState
-from blitzdg_tpu.ops.sw2d_wetdry import ssprk2_step_wetdry, sw2d_rhs_wetdry
-from blitzdg_tpu.specgrid.triangle import build_triangle_context
+from blitzdg_jax.mesh import box_triangles
+from blitzdg_jax.ops.sw2d import SWPhysics, SWState
+from blitzdg_jax.ops.sw2d_wetdry import ssprk2_step_wetdry, sw2d_rhs_wetdry
+from blitzdg_jax.specgrid.triangle import build_triangle_context
 
 
 H_FLOOR = 1e-3

@@ -12,7 +12,7 @@ copy the reference's hardcoded table (include/TriangleCubatureRules.hpp —
 which has a data-entry defect at rule 3, SURVEY.md defects); it regenerates
 better rules from first principles.
 
-Writes blitzdg_tpu/specgrid/_cubature_tables.npz with r/s/w per order.
+Writes blitzdg_jax/specgrid/_cubature_tables.npz with r/s/w per order.
 Rerun:  python tools/gen_cubature.py [max_order]
 """
 import os
@@ -23,8 +23,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 from scipy.optimize import least_squares
 
-from blitzdg_tpu.specgrid.cubature import duffy_cubature
-from blitzdg_tpu.specgrid.triangle import grad_vandermonde_2d, vandermonde_2d
+from blitzdg_jax.specgrid.cubature import duffy_cubature
+from blitzdg_jax.specgrid.triangle import grad_vandermonde_2d, vandermonde_2d
 
 TOL_RES = 1e-12
 W_MIN = 1e-9
@@ -109,7 +109,7 @@ def main(max_order=21):
         tables[f"s{order}"] = s
         tables[f"w{order}"] = w
     out = os.path.join(os.path.dirname(__file__), "..",
-                       "blitzdg_tpu", "specgrid", "_cubature_tables.npz")
+                       "blitzdg_jax", "specgrid", "_cubature_tables.npz")
     np.savez_compressed(out, **tables)
     print(f"wrote {out}")
 
